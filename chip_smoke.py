@@ -1,0 +1,285 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``hpdg_tpu_torch``) on one NVIDIA card.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run with a nonzero exit code):
+
+1. the card's name and power limit (nvidia-smi), torch/CUDA versions,
+   TF32 off;
+2. build the uniform-stencil kernel K1 (nvcc, sm_90a) from the sources;
+3. K1 against its plain PyTorch twin at every level shape of the 12^3 and
+   32^3 solves plus a 2D lattice, both penalty scalings, Dirichlet on and
+   off (bound 1e-5 of max|y|), and the median apply times of both at the
+   32^3 shapes (CUDA events);
+4. the verified 3D SIPG p=4 hp-multigrid solve at 12^3 (216,000 dofs)
+   and 32^3 (4,096,000 dofs): f32 V-cycle chains, f64 anchors on the
+   card, one f64 verification on the host; asserts verified <= 1e-8 and
+   that K1 ran as every level's operator, as often as the hierarchy
+   implies.
+
+The last two lines are a JSON summary of the kernels and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+checkout, the script exits nonzero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+TOL_KERNEL = 1e-5  # of max|y|: f32 sums taken in another order
+PENALTY = 2.0
+SCALING = "normal"
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def event_times(fn, reps: int) -> list:
+    """Per-call device times (ms) of ``fn()`` by CUDA events."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return times
+
+
+def check_kernel(dev):
+    """Phase 3: K1 against the plain twin on the card."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.matrixfree.uniform import uniform_sipg_operator
+    from hpdg_tpu_torch.ops.uniform_stencil import UniformStencilOperator
+
+    cases = [((32, 32, 32), 4), ((32, 32, 32), 2), ((32, 32, 32), 1),
+             ((16, 16, 16), 1), ((8, 8, 8), 1), ((4, 4, 4), 1),
+             ((12, 12, 12), 4), ((12, 12, 12), 2), ((12, 12, 12), 1),
+             ((6, 6, 6), 1), ((3, 3, 3), 1), ((1, 3, 2), 2), ((24, 20), 4)]
+    rng = np.random.default_rng(1887)
+    worst = 0.0
+    timing = {}
+    for cells, p in cases:
+        mesh = hm.structured(cells)
+        basis = DGBasis(mesh, np.full(mesh.n_elements, p, dtype=np.int32))
+        u = torch.as_tensor(rng.standard_normal(
+            (mesh.n_elements, (p + 1) ** len(cells))), dtype=torch.float32,
+            device=dev)
+        for scaling in ("measure", "normal"):
+            for dirichlet in (True, False):
+                op = UniformStencilOperator(basis, PENALTY, dirichlet,
+                                            scaling, device=dev)
+                twin = uniform_sipg_operator(basis, PENALTY, dirichlet,
+                                             torch.float32, scaling,
+                                             device=dev, tables=op.tables)
+                yk = op({p: u})[p]
+                yt = twin({p: u})[p]
+                torch.cuda.synchronize()
+                abs_err = float((yk - yt).abs().max())
+                rel = abs_err / float(yt.abs().max())
+                ok = bool(torch.isfinite(yk).all()) and rel <= TOL_KERNEL
+                print(f"kernel-vs-twin cells={cells} p={p} {scaling:7s} "
+                      f"dirichlet={dirichlet!s:5s} max_abs_err={abs_err:.3e} "
+                      f"rel={rel:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError(f"K1 disagrees with its twin at "
+                                         f"{cells} p={p}: rel {rel:.3e}")
+                worst = max(worst, rel)
+                if (len(cells) == 3 and cells[0] == 32 and dirichlet
+                        and scaling == SCALING):
+                    tk = event_times(lambda: op({p: u}), 30)
+                    tt = event_times(lambda: twin({p: u}), 30)
+                    timing[p] = dict(ms=float(np.median(tk)),
+                                     plain_ms=float(np.median(tt)),
+                                     max_abs_err=abs_err)
+                    print(f"apply-time cells={cells} p={p} bs={(p + 1) ** 3} "
+                          f"kernel_median_ms={timing[p]['ms']:.4f} "
+                          f"plain_median_ms={timing[p]['plain_ms']:.4f}",
+                          flush=True)
+    print(f"kernel-vs-twin: {len(cases) * 4} cases, worst rel err "
+          f"{worst:.3e} (bound {TOL_KERNEL:g})", flush=True)
+    return timing
+
+
+def solve(n: int, dev, p: int = 4, chain_k: int = 2):
+    """Phase 4: the verified solve at n^3 elements, degree p."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.assemble import l2_functional
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.matrixfree.uniform import uniform_sipg_factorized
+    from hpdg_tpu_torch.ops.uniform_stencil import UniformStencilOperator
+    from hpdg_tpu_torch.solvers.multigrid import matrixfree_multigrid_solver
+    from hpdg_tpu_torch.solvers.refine import refinement_solve
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    # hierarchy and base as bench.py chooses them: halve while the base
+    # stays >= 3 cells per axis
+    base, nlev = n, 0
+    while base % 2 == 0 and base // 2 >= 3:
+        base //= 2
+        nlev += 1
+    meshes = hm.hierarchy(hm.structured((base,) * 3), nlev)
+    mesh = meshes[-1]
+    basis = DGBasis(mesh, np.full(mesh.n_elements, p, dtype=np.int32))
+    kw = dict(penalty=PENALTY, dirichlet=True, penalty_scaling=SCALING)
+    step, info = matrixfree_multigrid_solver(
+        basis, meshes=meshes, smoother="patch", dtype=torch.float32,
+        device=dev, **kw)
+    f = lambda x: (2 * np.pi**2 * torch.sin(np.pi * x[..., 0])  # noqa: E731
+                   * torch.sin(np.pi * x[..., 1]) * torch.sin(np.pi * x[..., 2]))
+    b64 = l2_functional(basis, f, dtype=torch.float64, device=dev)
+    A64 = uniform_sipg_factorized(basis, dtype=torch.float64, device=dev, **kw)
+    A_host = uniform_sipg_factorized(basis, dtype=torch.float64, device="cpu",
+                                     **kw)
+    b_host = {k: v.cpu() for k, v in b64.items()}
+    residual = lambda x: bv.sub(b64, A64(x))  # noqa: E731
+    host_residual = lambda x: bv.sub(b_host, A_host(x))  # noqa: E731
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+
+    ops = info["operators"]
+    if not all(isinstance(op, UniformStencilOperator) and op.device == dev
+               for op in ops):
+        raise AssertionError("a level operator is not K1 on the card")
+    for op in ops:
+        op.launches = 0
+    x64, res = refinement_solve(step, residual, b64, chain_k=chain_k,
+                                tol=1e-8, max_steps=8,
+                                host_residual=host_residual)
+    torch.cuda.synchronize()
+    launches = sum(op.launches for op in ops)
+    # per V-cycle and non-coarse level: one pre and one post sweep with
+    # one apply per color, plus the residual before restriction
+    per_cycle = sum(2 * len(sm.color_groups) + 1 for sm in info["smoothers"])
+    expected = res["cycles"] * per_cycle
+    peak = torch.cuda.max_memory_allocated(dev)
+    if any(op.launches == 0 for op in ops):
+        raise AssertionError("a level's operator never launched K1")
+    if launches != expected:
+        raise AssertionError(f"K1 launches {launches} != {expected} "
+                             "implied by the hierarchy")
+    (xp,) = x64.values()
+    if tuple(xp.shape) != (mesh.n_elements, (p + 1) ** 3) \
+            or not bool(torch.isfinite(xp).all()):
+        raise AssertionError("solution has the wrong shape or non-finite "
+                             "values")
+    if not (res["verified"] and res["rel_residual"] <= 1e-8):
+        raise AssertionError(f"solve at {n}^3 not verified: rel "
+                             f"{res['rel_residual']:.3e}")
+
+    # single-cycle contraction (f64 residual of the f32 iterates), and
+    # the time of one V-cycle by CUDA events
+    b32 = {k: v.float() for k, v in b64.items()}
+    nb = float(bv.norm(b64))
+    x = bv.zeros_like(b32)
+    rdiag = [1.0]
+    for _ in range(4):
+        x = step(x, b32)
+        rdiag.append(float(bv.norm(residual(
+            {k: v.double() for k, v in x.items()}))) / nb)
+    seq = [r for r in rdiag if r > 2e-6] or rdiag[:2]
+    rate = (seq[-1] / seq[0]) ** (1.0 / max(1, len(seq) - 1))
+    x0 = bv.zeros_like(b32)
+    t_cycle = float(np.median(event_times(lambda: step(x0, b32), 5)))
+
+    levels = " ".join(f"{b.mesh.n_elements}e/p{b.bucket_degrees[0]}"
+                      for b in info["bases"])
+    print(f"solve n={n}^3 p={p} dofs={basis.ndof} levels=[{levels}] "
+          f"setup_s={t_setup:.2f}", flush=True)
+    print(f"solve n={n}^3 steps={res['steps']} cycles={res['cycles']} "
+          f"history={['%.3e' % h for h in res['history']]} "
+          f"verified_rel_residual={res['rel_residual']:.3e} "
+          f"verified={res['verified']}", flush=True)
+    print(f"solve n={n}^3 cycle_residuals="
+          f"{['%.3e' % r for r in rdiag]} (f32 chain from zero)", flush=True)
+    print(f"solve n={n}^3 rate_per_cycle={rate:.4f} ms_per_vcycle="
+          f"{t_cycle:.3f} solve_s={res['seconds']:.3f} "
+          f"loop_s={res['seconds_loop']:.3f} peak_mem_bytes={peak} "
+          f"K1_launches={launches} expected={expected} "
+          f"({per_cycle} per V-cycle)", flush=True)
+    return dict(ndof=basis.ndof, launches=launches)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        from hpdg_tpu_torch.ops import uniform_stencil
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a checkout ({e})",
+              file=sys.stderr)
+        return 2
+
+    # ---- phase 1: device ----
+    card = smi()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on")
+    dev = torch.device("cuda", 0)
+
+    # ---- phase 2: build ----
+    t0 = time.perf_counter()
+    uniform_stencil.build()
+    print(f"build K1 ({uniform_stencil.SOURCE.name} -> "
+          f"{uniform_stencil.library_path().name}): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    log = f"{uniform_stencil.library_path()}.log"
+    if os.path.exists(log):
+        print(open(log).read().strip(), flush=True)
+
+    # ---- phase 3: kernel vs plain twin ----
+    timing = check_kernel(dev)
+
+    # ---- phase 4: the solves ----
+    solve(12, dev)
+    main_run = solve(32, dev)
+
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
+    t4 = timing[4]
+    summary = {"kernels": [{
+        "name": "uniform_stencil",
+        "route": "cuda",
+        "source": "hpdg_tpu_torch/csrc/uniform_stencil.cu",
+        "replaces": "hpdg_tpu/ops/pallas_uniform.py:230",
+        "launches": main_run["launches"],
+        "max_abs_err": t4["max_abs_err"],
+        "ms": t4["ms"],
+        "plain_ms": t4["plain_ms"],
+    }]}
+    print(smi(), flush=True)
+    print(json.dumps(summary), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

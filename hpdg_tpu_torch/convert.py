@@ -1,0 +1,43 @@
+"""Carry state across from ``hpdg_tpu`` into the port, as numpy.
+
+The system has no learned weights: its state is bucket-dict vectors and
+block-sparse matrices.  These helpers take their numpy form (for a
+reference array ``a``: ``np.asarray(a)``) so that both packages can be
+fed the same state without this package importing JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hpdg_tpu_torch import device as dev
+from hpdg_tpu_torch.linalg.blockmatrix import BlockPattern, BlockSparseMatrix
+
+
+def bucket_dict(x: dict, dtype=None, device=None) -> dict:
+    """``{key: array}`` (numpy) -> ``{key: Tensor}`` on ``device``."""
+    device = dev.resolve(device)
+    out = {}
+    for key, a in x.items():
+        t = torch.from_numpy(np.array(a, copy=True))
+        out[key] = t.to(device=device, dtype=dtype or t.dtype)
+    return out
+
+
+def to_numpy(x: dict) -> dict:
+    """``{p: Tensor}`` -> ``{p: numpy array}`` on the host."""
+    return {p: t.detach().cpu().numpy() for p, t in x.items()}
+
+
+def block_sparse_matrix(row_sizes: dict, col_sizes: dict, entries: dict,
+                        values: dict, dim: int, dtype=None,
+                        device=None) -> BlockSparseMatrix:
+    """A reference ``BlockSparseMatrix`` given as its pattern
+    (``row_sizes``, ``col_sizes``, ``entries[(pr, pc)] = (rows, cols)``)
+    and ``values[(pr, pc)]`` as numpy -> the port's matrix."""
+    pattern = BlockPattern(row_sizes, col_sizes,
+                           {k: (np.asarray(r), np.asarray(c))
+                            for k, (r, c) in entries.items()})
+    vals = bucket_dict(values, dtype=dtype, device=device)
+    return BlockSparseMatrix(pattern, dim, {k: vals[k] for k in values})

@@ -1,0 +1,108 @@
+"""K1 and the slice on a CUDA card (``cuda`` marker; skipped without one).
+
+This file imports neither JAX nor ``hpdg_tpu``, so it also runs on a
+machine with the card but without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
+
+K1 is held against its plain twin (1e-5 of max|y|: f32 sums in another
+order); the CUDA V-cycle against the same cycle on CPU tensors (the twin
+path, f32); the refinement solve on the card is verified to 1e-8.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hpdg_tpu_torch import convert
+from hpdg_tpu_torch import mesh as tmesh
+from hpdg_tpu_torch.assemble import l2_functional
+from hpdg_tpu_torch.basis.dgbasis import DGBasis
+from hpdg_tpu_torch.linalg import blockvector as bv
+from hpdg_tpu_torch.matrixfree.uniform import (uniform_sipg_factorized,
+                                               uniform_sipg_operator)
+from hpdg_tpu_torch.ops import uniform_stencil as us
+from hpdg_tpu_torch.solvers import matrixfree_multigrid_solver, refinement_solve
+
+pytestmark = pytest.mark.cuda
+KW = dict(penalty=2.0, dirichlet=True, penalty_scaling="normal")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _basis(cells, p):
+    m = tmesh.structured(cells)
+    return DGBasis(m, np.full(m.n_elements, p))
+
+
+@pytest.mark.parametrize("cells,p", [((4, 2, 3), 2), ((3, 3, 3), 1),
+                                     ((1, 3, 2), 2), ((6, 5, 4), 4),
+                                     ((5, 3), 4)])
+@pytest.mark.parametrize("dirichlet", [True, False])
+def test_kernel_matches_twin(dev, cells, p, dirichlet):
+    tb = _basis(cells, p)
+    op = us.uniform_stencil_operator(tb, 2.0, dirichlet, "normal", device=dev)
+    twin = uniform_sipg_operator(tb, 2.0, dirichlet, torch.float32, "normal",
+                                 device=dev, tables=op.tables)
+    u = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (tb.mesh.n_elements, tb.n_local(p))), dtype=torch.float32, device=dev)
+    yk, yt = op({p: u})[p], twin({p: u})[p]
+    torch.cuda.synchronize()
+    assert op.launches == 1
+    assert float((yk - yt).abs().max()) <= 1e-5 * float(yt.abs().max())
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    tb = _basis((3, 2, 2), 2)
+    op = us.uniform_stencil_operator(tb, device=dev)
+    u = torch.zeros((12, 27), dtype=torch.float32, device=dev)
+    with pytest.raises(TypeError):
+        op({2: u.double()})
+    with pytest.raises(ValueError):
+        op({2: u[:, :26]})
+    with pytest.raises(ValueError):
+        op({2: torch.zeros((27, 12), device=dev).t()})  # not contiguous
+    assert op.launches == 0
+
+
+def test_vcycle_on_card_matches_cpu_twin_path(dev):
+    meshes = tmesh.hierarchy(tmesh.structured((3, 3, 3)), 1)
+    tb = DGBasis(meshes[-1], np.full(meshes[-1].n_elements, 2))
+    gstep, info = matrixfree_multigrid_solver(tb, meshes=meshes,
+                                              dtype=torch.float32,
+                                              device=dev, **KW)
+    cstep, _ = matrixfree_multigrid_solver(tb, meshes=meshes,
+                                           dtype=torch.float32, **KW)
+    rng = np.random.default_rng(6)
+    x = {2: rng.standard_normal((216, 27))}
+    b = {2: rng.standard_normal((216, 27))}
+    yg = gstep(convert.bucket_dict(x, torch.float32, dev),
+               convert.bucket_dict(b, torch.float32, dev))[2].cpu()
+    yc = cstep(convert.bucket_dict(x, torch.float32),
+               convert.bucket_dict(b, torch.float32))[2]
+    assert float((yg - yc).norm() / yc.norm()) < 1e-5
+    # one V-cycle: 2 sweeps x 8 colors + 1 residual on each of 2 levels
+    assert sum(op.launches for op in info["operators"]) == 34
+
+
+def test_refinement_solve_on_card_verifies(dev):
+    meshes = tmesh.hierarchy(tmesh.structured((3, 3, 3)), 1)
+    tb = DGBasis(meshes[-1], np.full(meshes[-1].n_elements, 2))
+    step, _ = matrixfree_multigrid_solver(tb, meshes=meshes,
+                                          dtype=torch.float32,
+                                          device=dev, **KW)
+    f = lambda x: torch.sin(np.pi * x[..., 0]) * (1.0 + x[..., 1])  # noqa: E731
+    b64 = l2_functional(tb, f, device=dev)
+    A64 = uniform_sipg_factorized(tb, device=dev, **KW)
+    A_host = uniform_sipg_factorized(tb, **KW)
+    b_host = {k: v.cpu() for k, v in b64.items()}
+    x64, info = refinement_solve(
+        step, lambda x: bv.sub(b64, A64(x)), b64, chain_k=2, tol=1e-8,
+        max_steps=8, host_residual=lambda x: bv.sub(b_host, A_host(x)))
+    assert info["verified"] and info["rel_residual"] <= 1e-8
+    assert x64[2].device == dev
