@@ -18,7 +18,21 @@ Phases (any failure ends the run with a nonzero exit code):
    and 32^3 (4,096,000 dofs): f32 V-cycle chains, f64 anchors on the
    card, one f64 verification on the host; asserts verified <= 1e-8 and
    that K1 ran as every level's operator, as often as the hierarchy
-   implies.
+   implies;
+5. the entry step of ``__graft_entry__.entry()``: ``sipg_operator`` at 8^3
+   p=4 (f32, Dirichlet, penalty 2, "measure") against K1 on the same
+   lattice (bound 1e-5 of max|y|);
+6. the adaptive apply at the size of the reference's bench cell (14^3,
+   30% refined with 2:1 closure, p=4, 1,099,000 dofs, "normal"): the
+   sum-factorized and the dedup SpMV apply in f32 on the card, against
+   each other and against the f64 sum-factorized apply (bound 1e-5 of
+   max|y|); host build seconds, median apply times (CUDA events),
+   launches per apply and the top ops by device time (profiler), peak
+   memory;
+7. an hp-adaptive solve: 8^3 with 30% refined, degrees {2, 3, 4},
+   block-Jacobi PCG in f64 on the card (sum-factorized matvec, diagonal
+   blocks from ``sipg_diagonal_blocks``, tol 1e-8), its relative
+   residual recomputed by the f64 dedup SpMV and asserted <= 1e-8.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -222,6 +236,203 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2):
     return dict(ndof=basis.ndof, launches=launches)
 
 
+def profile_apply(fn, reps: int = 5):
+    """Kernel launches and device ms per call of ``fn()``, and the ops
+    that take the most device time (torch.profiler); ``None`` where the
+    profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    ops = sorted((a for a in avgs if a.device_type == DeviceType.CPU
+                  and a.self_device_time_total > 0),
+                 key=lambda a: -a.self_device_time_total)
+    return dict(
+        launches=sum(a.count for a in kernels) / reps,
+        device_ms=sum(a.device_time_total for a in kernels) / 1e3 / reps,
+        top=[(a.key, a.self_device_time_total / 1e3 / reps, a.count / reps)
+             for a in ops[:6]])
+
+
+def print_profile(tag: str, prof):
+    if prof is None:
+        print(f"{tag} profile: not measured (no device events)", flush=True)
+        return
+    print(f"{tag} profile: {prof['launches']:.0f} kernel launches/apply, "
+          f"device {prof['device_ms']:.4f} ms/apply", flush=True)
+    for name, ms, count in prof["top"]:
+        print(f"{tag}   {name:40s} {ms:.4f} ms/apply ({count:.0f} calls)",
+              flush=True)
+
+
+def check_rel(tag: str, want: dict, got: dict, bound: float):
+    """max|got - want| / max|want| over all buckets; raises above
+    ``bound`` or on non-finite values."""
+    scale = max(float(v.abs().max()) for v in want.values())
+    err = max(float((got[p].double() - want[p].double()).abs().max())
+              for p in want)
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    ok = finite and err <= bound * scale
+    print(f"{tag}: max_abs_err={err:.3e} rel={err / scale:.3e} "
+          f"(bound {bound:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{tag}: rel err {err / scale:.3e}")
+
+
+def entry_step(dev, n: int = 8):
+    """Phase 5: the sum-factorized entry step against K1."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.matrixfree import sipg_operator
+    from hpdg_tpu_torch.ops.uniform_stencil import UniformStencilOperator
+
+    p = 4
+    mesh = hm.structured((n, n, n))
+    basis = DGBasis(mesh, np.full(mesh.n_elements, p))
+    op = sipg_operator(basis, penalty=2.0, dirichlet=True,
+                       dtype=torch.float32, device=dev)
+    k1 = UniformStencilOperator(basis, 2.0, True, "measure", device=dev)
+    x = {p: torch.as_tensor(np.random.default_rng(1887).standard_normal(
+        (mesh.n_elements, (p + 1) ** 3)), dtype=torch.float32, device=dev)}
+    y = op(x)
+    if tuple(y[p].shape) != tuple(x[p].shape):
+        raise AssertionError("entry step: wrong output shape")
+    check_rel(f"entry step sumfact-vs-K1 {n}^3 p=4", k1(x), y, TOL_KERNEL)
+    ts = float(np.median(event_times(lambda: op(x), 30)))
+    tk = float(np.median(event_times(lambda: k1(x), 30)))
+    print(f"entry step {n}^3 p=4 dofs={basis.ndof} sumfact_median_ms={ts:.4f} "
+          f"K1_median_ms={tk:.4f}", flush=True)
+
+
+def adaptive_apply(dev, n: int = 14):
+    """Phase 6: the adaptive apply at the bench cell's size (n = 14),
+    both routes."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.assemble import build_plan
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.matrixfree import dedup_spmv_from_plan, sipg_operator
+    from hpdg_tpu_torch.mesh.adaptive import close_marks, refine_local
+
+    p = 4
+    kw = dict(penalty=2.0, dirichlet=True, penalty_scaling="normal")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    m0 = hm.structured((n, n, n))
+    mesh = refine_local(m0, close_marks(m0, rng.random(m0.n_elements) < 0.3))
+    basis = DGBasis(mesh, np.full(mesh.n_elements, p))
+    plan = build_plan(basis)
+    t_mesh = time.perf_counter() - t0
+    ndof = basis.ndof
+    x = {p: torch.as_tensor(rng.standard_normal(
+        (basis.bucket_size(p), (p + 1) ** 3)), dtype=torch.float32,
+        device=dev)}
+    print(f"adaptive {n}^3 30% p=4: elements={mesh.n_elements} dofs={ndof} "
+          f"nc_faces={int((mesh.faces.nc_code > 0).sum())} "
+          f"face_groups={len(plan.face_groups)} "
+          f"mesh+plan_host_s={t_mesh:.2f}", flush=True)
+
+    t0 = time.perf_counter()
+    op_dd, st = dedup_spmv_from_plan(basis, dtype=torch.float32, plan=plan,
+                                     device=dev, **kw)
+    torch.cuda.synchronize()
+    t_dd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op_sf = sipg_operator(basis, dtype=torch.float32, plan=plan, device=dev,
+                          **kw)
+    torch.cuda.synchronize()
+    t_sf = time.perf_counter() - t0
+    op64 = sipg_operator(basis, dtype=torch.float64, plan=plan, device=dev,
+                         **kw)
+    nu = sum(st["n_unique"].values())
+    print(f"adaptive dedup: unique_blocks={nu} nnz={sum(st['nnz'].values())} "
+          f"compression={st['compression']:.4f} build_host_s={t_dd:.2f} "
+          f"launches_per_apply(layout)={st['launches']}", flush=True)
+    print(f"adaptive sumfact: build_host_s={t_sf:.2f}", flush=True)
+
+    y64 = op64({p: x[p].double()})
+    y_sf, y_dd = op_sf(x), op_dd(x)
+    check_rel("adaptive sumfact-f32 vs sumfact-f64", y64, y_sf, TOL_KERNEL)
+    check_rel("adaptive dedup-f32 vs sumfact-f64", y64, y_dd, TOL_KERNEL)
+    check_rel("adaptive dedup-f32 vs sumfact-f32", y_sf, y_dd, TOL_KERNEL)
+    for tag, op in (("sumfact", op_sf), ("dedup", op_dd)):
+        ms = float(np.median(event_times(lambda: op(x), 30)))
+        print(f"adaptive {tag}: median_ms_per_apply={ms:.4f} "
+              f"dof_per_s={ndof / (ms / 1e3):.4e}", flush=True)
+        print_profile(f"adaptive {tag}", profile_apply(lambda: op(x)))
+    print(f"adaptive peak_mem_bytes={torch.cuda.max_memory_allocated(dev)}",
+          flush=True)
+
+
+def hp_solve(dev, cells=(8, 8, 8)):
+    """Phase 7: block-Jacobi PCG in f64 on an hp-adaptive mesh, verified
+    by the dedup SpMV."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.assemble import build_plan, l2_functional
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.matrixfree import (dedup_spmv_from_plan,
+                                           sipg_diagonal_blocks,
+                                           sipg_operator)
+    from hpdg_tpu_torch.mesh.adaptive import close_marks, refine_local
+    from hpdg_tpu_torch.solvers import pcg
+    from hpdg_tpu_torch.solvers.smoothers import block_jacobi_preconditioner
+
+    kw = dict(penalty=2.0, dirichlet=True, penalty_scaling="normal")
+    t0 = time.perf_counter()
+    m0 = hm.structured(cells)
+    marks = np.random.default_rng(3).random(m0.n_elements) < 0.3
+    mesh = refine_local(m0, close_marks(m0, marks))
+    degrees = np.random.default_rng(1887).integers(2, 5, size=mesh.n_elements)
+    basis = DGBasis(mesh, degrees)
+    plan = build_plan(basis)
+    op = sipg_operator(basis, dtype=torch.float64, plan=plan, device=dev,
+                       **kw)
+    M = block_jacobi_preconditioner(sipg_diagonal_blocks(
+        basis, dtype=torch.float64, plan=plan, device=dev, **kw))
+    f = lambda x: (2 * np.pi**2 * torch.sin(np.pi * x[..., 0])  # noqa: E731
+                   * torch.sin(np.pi * x[..., 1]) * torch.sin(np.pi * x[..., 2]))
+    b = l2_functional(basis, f, dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, info = pcg(op, b, precond=M, tol=1e-8, maxiter=5000)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    k = info["iterations"]
+    hist = info["residuals"]
+    dd, _ = dedup_spmv_from_plan(basis, dtype=torch.float64, plan=plan,
+                                 device=dev, **kw)
+    rel = float(bv.norm(bv.sub(b, dd(x))) / bv.norm(b))
+    finite = all(bool(torch.isfinite(v).all()) for v in x.values())
+    shapes = all(tuple(x[q].shape) == (basis.bucket_size(q), basis.n_local(q))
+                 for q in basis.bucket_degrees)
+    print(f"hp solve {cells[0]}^3 30% p=2..4: elements={mesh.n_elements} "
+          f"dofs={basis.ndof} nc_faces={int((mesh.faces.nc_code > 0).sum())} "
+          f"degrees={list(basis.bucket_degrees)} "
+          f"face_groups={len(plan.face_groups)} setup_s={t_setup:.2f}",
+          flush=True)
+    print(f"hp solve: iterations={k} solve_s={t_solve:.3f} "
+          f"ms_per_iteration={1e3 * t_solve / max(k, 1):.3f} "
+          f"residual_first={float(hist[0]):.4e} "
+          f"residual_last={float(hist[k]):.4e} "
+          f"dedup_verified_rel_residual={rel:.4e}", flush=True)
+    if not (finite and shapes):
+        raise AssertionError("hp solve: wrong shape or non-finite values")
+    if not (k < 5000 and rel <= 1e-8):
+        raise AssertionError(f"hp solve not verified: {k} iterations, "
+                             f"rel {rel:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -259,6 +470,11 @@ def main() -> int:
     # ---- phase 4: the solves ----
     solve(12, dev)
     main_run = solve(32, dev)
+
+    # ---- phases 5-7: the hp-adaptive general-mesh path ----
+    entry_step(dev)
+    adaptive_apply(dev)
+    hp_solve(dev)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -206,6 +206,41 @@ def face_group_tables(basis, fg: FaceGroup, nq1: int):
     return fin, fout
 
 
+def face_phys_points(basis, fg: FaceGroup, pts: np.ndarray) -> np.ndarray:
+    """Parametric quadrature points of a face group, on the intersection
+    (= the fine face for non-conforming pairs).  (nf, nq, dim).
+
+    Box meshes share one global parametric chart, so the same point
+    array serves both sides (per-element charts of imported meshes come
+    with ROADMAP queue 1, item 19)."""
+    mesh = basis.mesh
+    ein = mesh.faces.inside[fg.face_ids]
+    eout = mesh.faces.outside[fg.face_ids]
+    lo = np.maximum(mesh.lower[ein], mesh.lower[eout])
+    ext = np.minimum(mesh.extent[ein], mesh.extent[eout])
+    lo[:, fg.axis] = mesh.lower[eout][:, fg.axis]  # the face plane
+    x = np.repeat(lo[:, None, :], len(pts), axis=1)
+    tang = [a for a in range(mesh.dim) if a != fg.axis]
+    for t, a in enumerate(tang):
+        x[:, :, a] += pts[None, :, t] * ext[:, a][:, None]
+    return x
+
+
+def boundary_phys_points(basis, bg: BoundaryGroup,
+                         pts: np.ndarray) -> np.ndarray:
+    """Parametric quadrature points of a boundary group, (nf, nq, dim)."""
+    mesh = basis.mesh
+    elems = mesh.bfaces.elem[bg.face_ids]
+    lo = mesh.lower[elems].copy()
+    if bg.side == 1:
+        lo[:, bg.axis] += mesh.extent[elems, bg.axis]
+    x = np.repeat(lo[:, None, :], len(pts), axis=1)
+    tang = [a for a in range(mesh.dim) if a != bg.axis]
+    for t, a in enumerate(tang):
+        x[:, :, a] += pts[None, :, t] * mesh.extent[elems, a][:, None]
+    return x
+
+
 def penalty_coef(fg: FaceGroup, penalty: float, pmax: int,
                  scaling: str = "measure") -> np.ndarray:
     """Per-face penalty coefficient c_f such that the penalty term is

@@ -74,6 +74,33 @@ def matvec(A: BlockSparseMatrix, x: dict) -> dict:
     return out
 
 
+def diag_slots(pattern: BlockPattern) -> dict:
+    """For a square pattern: p -> int32 array s.t. slot of block (r, r)
+    of bucket (p, p) is out[p][r].  The plan's diag-first layout (slot
+    of (r, r) == r) is detected; other layouts are looked up."""
+    out = {}
+    for p, n in pattern.row_sizes.items():
+        rows, cols = pattern.entries[(p, p)]
+        rng = np.arange(n, dtype=np.int32)
+        if (len(rows) >= n and np.array_equal(rows[:n], rng)
+                and np.array_equal(cols[:n], rng)):
+            out[p] = rng
+        else:
+            ix = pattern._slot_index((p, p))
+            out[p] = np.array([ix[(r, r)] for r in range(n)], np.int32)
+    return out
+
+
+def extract_diagonal(A: BlockSparseMatrix) -> dict:
+    """p -> [n_p, br, br] diagonal blocks (for block-Jacobi smoothers)."""
+    out = {}
+    for p, slots in diag_slots(A.pattern).items():
+        vals = A.values[(p, p)]
+        out[p] = vals[torch.as_tensor(slots, dtype=torch.int64,
+                                      device=vals.device)]
+    return out
+
+
 def to_dense(A: BlockSparseMatrix, basis_row, basis_col=None) -> np.ndarray:
     """Flat dense matrix in element order (host numpy, float64)."""
     basis_col = basis_col or basis_row

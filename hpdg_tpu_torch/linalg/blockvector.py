@@ -76,3 +76,15 @@ def scale(a, x: dict) -> dict:
 
 def zeros_like(x: dict) -> dict:
     return {p: torch.zeros_like(v) for p, v in x.items()}
+
+
+def random(basis: DGBasis, seed: int = 1887, dtype=torch.float64,
+           device=None) -> dict:
+    """Deterministic pseudo-random vector: numpy's ``default_rng(seed)``
+    draws the same numbers as ``hpdg_tpu.linalg.blockvector.random``
+    (fixed seed 1887, the reference's test fixture)."""
+    device = dev.resolve(device)
+    rng = np.random.default_rng(seed)
+    return {p: torch.as_tensor(
+        rng.standard_normal((basis.bucket_size(p), basis.n_local(p))),
+        dtype=dtype, device=device) for p in basis.bucket_degrees}

@@ -57,8 +57,26 @@ class Faces:
             object.__setattr__(self, "twist",
                                np.zeros(nf, dtype=np.int32))
 
+    @property
+    def is_classic(self) -> bool:
+        """True iff every face follows the classic identity contract
+        (in high / out low on the same axis, no twist)."""
+        return bool(np.all(self.in_side == 1)
+                    and np.array_equal(self.out_axis, self.axis)
+                    and np.all(self.out_side == 0)
+                    and np.all(self.twist == 0))
+
     def __len__(self):
         return len(self.inside)
+
+
+def require_classic_faces(mesh, what: str) -> None:
+    """Guard for code paths that assume the classic identity face
+    contract; generalized charts come with ROADMAP queue 1, item 19."""
+    if not mesh.faces.is_classic:
+        raise NotImplementedError(
+            f"{what}: twisted/generalized face charts: ROADMAP queue 1, "
+            "item 19 (geometry)")
 
 
 @dataclass(frozen=True)
@@ -314,8 +332,7 @@ def refine(mesh: Mesh, marks: np.ndarray | None = None) -> Mesh:
     refinement waits for the port of ``mesh.adaptive``.
     """
     if marks is not None:
-        raise NotImplementedError(
-            "local refinement: ROADMAP queue 1, item 9 (mesh.adaptive)")
+        raise NotImplementedError("local refinement lives in mesh.adaptive")
     n, dim = mesh.lower.shape
     nc = 2**dim
     bits = ((np.arange(nc)[:, None] >> np.arange(dim - 1, -1, -1)[None, :]) & 1)

@@ -134,3 +134,44 @@ def test_blockvector_ops_match_reference():
     for want, got in pairs:
         np.testing.assert_allclose(rbv.to_flat(rb, want), tbv.to_flat(tb, got),
                                    rtol=0, atol=1e-15 * np.abs(f1).max() * 4)
+
+
+@pytest.mark.parametrize("case", ["2d", "3d"])
+@pytest.mark.parametrize("kind,dg_form,sigma1", [
+    ("scalar", "sipg", 0.0), ("scalar", "nipg", 0.6),
+    ("tensor", "sipg", 0.0), ("tensor", "iipg", 0.5)])
+def test_assemble_diffusion_matches_reference(case, kind, dg_form, sigma1):
+    """The per-quadrature-point builder (scalar and tensor media) on
+    hanging-node, mixed-degree meshes, at 1e-12 of max|A|."""
+    from test_torch_sumfact import DIFFUSION, hanging_pair
+    rb, tb = hanging_pair(case)
+    k_ref, k_port = DIFFUSION[kind]
+    kw = dict(penalty=3.0, dirichlet=True, penalty_scaling="normal",
+              dg_form=dg_form, sigma1=sigma1)
+    RA = r_assemble(rb, diffusion=k_ref, dtype=jnp.float64, **kw)
+    TA = t_assemble(tb, diffusion=k_port, **kw)
+    assert RA.values.keys() == TA.values.keys()
+    Rd = rbm.to_dense(RA, rb)
+    np.testing.assert_allclose(Rd, tbm.to_dense(TA, tb), rtol=0,
+                               atol=1e-12 * np.abs(Rd).max())
+
+
+@pytest.mark.parametrize("case", ["2d", "3d"])
+@pytest.mark.parametrize("dirichlet,scaling", [(True, "normal"),
+                                               (False, "measure")])
+def test_assemble_coef_parts_matches_reference(case, dirichlet, scaling):
+    """coef_parts=True: the factors multiply out to the reference's
+    values (1e-12 of max|A|); no diffusion allowed."""
+    from test_torch_sumfact import hanging_pair
+    rb, tb = hanging_pair(case)
+    kw = dict(penalty=2.0, dirichlet=dirichlet, penalty_scaling=scaling)
+    RA = r_assemble(rb, dtype=jnp.float64, **kw)
+    parts = t_assemble(tb, coef_parts=True, **kw)
+    assert parts.keys() == RA.values.keys()
+    scale = max(float(np.abs(np.asarray(v)).max()) for v in RA.values.values())
+    for key, (coef, D) in parts.items():
+        want = np.asarray(RA.values[key])
+        got = (coef @ D).reshape(want.shape)
+        assert np.abs(got - want).max() <= 1e-12 * scale, key
+    with pytest.raises(ValueError, match="coef_parts"):
+        t_assemble(tb, coef_parts=True, diffusion=lambda x: x[..., 0])
