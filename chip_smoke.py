@@ -9,16 +9,23 @@ Phases (any failure ends the run with a nonzero exit code):
 
 1. the card's name and power limit (nvidia-smi), torch/CUDA versions,
    TF32 off;
-2. build the uniform-stencil kernel K1 (nvcc, sm_90a) from the sources;
+2. build the uniform-stencil kernel K1 (nvcc, sm_90a) from the sources,
+   print ptxas' report (registers, spills) and each instantiation's
+   resident blocks per SM;
 3. K1 against its plain PyTorch twin at every level shape of the 12^3 and
-   32^3 solves plus a 2D lattice, both penalty scalings, Dirichlet on and
-   off (bound 1e-5 of max|y|), and the median apply times of both at the
-   32^3 shapes (CUDA events);
+   32^3 solves, a 2D lattice and one 3D lattice per instantiation that is
+   no multiple of its tile, both penalty scalings, Dirichlet on and off
+   (bound 1e-5 of max|y|); at the 32^3 levels (p = 4, 2, 1) and the 16^3
+   and 8^3 p=1 levels: K1's median apply time (CUDA events) and its
+   device time per launch (profiler), its bound from the shapes and the
+   share of it, the plain twin's time, and ``library_ms``, one
+   ``torch.sparse_bsr_tensor`` product with the same matrix;
 4. the verified 3D SIPG p=4 hp-multigrid solve at 12^3 (216,000 dofs)
    and 32^3 (4,096,000 dofs): f32 V-cycle chains, f64 anchors on the
    card, one f64 verification on the host; asserts verified <= 1e-8 and
    that K1 ran as every level's operator, as often as the hierarchy
-   implies;
+   implies; at 32^3 a profiler window of 3 V-cycles: K1's device ms per
+   cycle, all device ms per cycle, wall ms per cycle and the busy share;
 5. the entry step of ``__graft_entry__.entry()``: ``sipg_operator`` at 8^3
    p=4 (f32, Dirichlet, penalty 2, "measure") against K1 on the same
    lattice (bound 1e-5 of max|y|);
@@ -53,6 +60,9 @@ import torch
 TOL_KERNEL = 1e-5  # of max|y|: f32 sums taken in another order
 PENALTY = 2.0
 SCALING = "normal"
+# H100 SXM peaks (data sheet, 700 W): FP32 on the CUDA cores, HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def smi() -> str:
@@ -79,26 +89,96 @@ def event_times(fn, reps: int) -> list:
     return times
 
 
+def k1_bound(op) -> tuple:
+    """(ms, "operations" | "bytes"): the least time the card could take
+    for one apply, from the shapes: 2 bs^2 FLOP per block product (the
+    diagonal block and every present neighbour), each of u and y moved
+    once with the stored matrices."""
+    st = op.tables
+    n, bs = st.vid.shape[0], st.bs
+    products = n + int(st.has_p.sum() + st.has_m.sum())
+    flops = 2.0 * bs * bs * products
+    nbytes = 4.0 * (2 * n * bs + (len(st.variants) + 2 * st.dim) * bs * bs)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bsr_matrix(op, dev):
+    """The operator as one ``torch.sparse_bsr_tensor`` on the card (the
+    stencil's blocks, not transposed, column-sorted per block row)."""
+    st = op.tables
+    n, bs, dim = st.vid.shape[0], st.bs, st.dim
+    nvar = len(st.variants)
+    mats = torch.as_tensor(np.concatenate(
+        [st.Tdiag] + [np.stack([st.M12[ax], st.M21[ax]]) for ax in range(dim)]),
+        dtype=torch.float32, device=dev)
+    ar = np.arange(n)
+    cols = [ar]
+    ids = [st.vid.astype(np.int64)]
+    for ax in range(dim):
+        cols += [np.where(st.has_p[ax], st.nbr_p[ax], -1),
+                 np.where(st.has_m[ax], st.nbr_m[ax], -1)]
+        ids += [np.full(n, nvar + 2 * ax), np.full(n, nvar + 2 * ax + 1)]
+    cols, ids = np.stack(cols, 1), np.stack(ids, 1)
+    order = np.argsort(np.where(cols < 0, n, cols), axis=1, kind="stable")
+    cols = np.take_along_axis(cols, order, 1)
+    ids = np.take_along_axis(ids, order, 1)
+    keep = cols >= 0
+    crow = np.concatenate([[0], np.cumsum(keep.sum(1))])
+    values = mats[torch.as_tensor(ids[keep], device=dev)]
+    return torch.sparse_bsr_tensor(
+        torch.as_tensor(crow, device=dev), torch.as_tensor(cols[keep], device=dev),
+        values, size=(n * bs, n * bs), check_invariants=False)
+
+
+def library_ms(op, u, yk, dev):
+    """Median ms of ``A @ u`` with A a BSR tensor on the card, or the
+    error PyTorch raised; the matrix is freed before returning."""
+    try:
+        A = bsr_matrix(op, dev)
+        x = u.reshape(-1, 1)
+        yl = (A @ x).reshape(yk.shape)
+        torch.cuda.synchronize()
+        rel = float((yl - yk).abs().max()) / float(yk.abs().max())
+        if not rel <= TOL_KERNEL:
+            raise AssertionError(f"BSR product disagrees with K1: rel {rel:.3e}")
+        ms = float(np.median(event_times(lambda: A @ x, 10)))
+        return ms, None
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    finally:
+        A = yl = None  # noqa: F841
+        torch.cuda.empty_cache()
+
+
 def check_kernel(dev):
-    """Phase 3: K1 against the plain twin on the card."""
+    """Phase 3: K1 against the plain twin on the card, and the times of
+    the main path's levels."""
     from hpdg_tpu_torch import mesh as hm
     from hpdg_tpu_torch.basis.dgbasis import DGBasis
     from hpdg_tpu_torch.matrixfree.uniform import uniform_sipg_operator
-    from hpdg_tpu_torch.ops.uniform_stencil import UniformStencilOperator
+    from hpdg_tpu_torch.ops.uniform_stencil import (UniformStencilOperator,
+                                                    kernel_layout)
 
     cases = [((32, 32, 32), 4), ((32, 32, 32), 2), ((32, 32, 32), 1),
              ((16, 16, 16), 1), ((8, 8, 8), 1), ((4, 4, 4), 1),
              ((12, 12, 12), 4), ((12, 12, 12), 2), ((12, 12, 12), 1),
-             ((6, 6, 6), 1), ((3, 3, 3), 1), ((1, 3, 2), 2), ((24, 20), 4)]
+             ((6, 6, 6), 1), ((3, 3, 3), 1), ((1, 3, 2), 2), ((24, 20), 4),
+             # one per instantiation, no multiple of the tile
+             ((7, 9, 11), 4), ((13, 5, 7), 2), ((9, 11, 13), 1),
+             ((5, 6, 7), 3)]
+    timed = {((32, 32, 32), 4), ((32, 32, 32), 2), ((32, 32, 32), 1),
+             ((16, 16, 16), 1), ((8, 8, 8), 1)}
     rng = np.random.default_rng(1887)
     worst = 0.0
     timing = {}
     for cells, p in cases:
         mesh = hm.structured(cells)
         basis = DGBasis(mesh, np.full(mesh.n_elements, p, dtype=np.int32))
-        u = torch.as_tensor(rng.standard_normal(
-            (mesh.n_elements, (p + 1) ** len(cells))), dtype=torch.float32,
-            device=dev)
+        bs = (p + 1) ** len(cells)
+        u = torch.as_tensor(rng.standard_normal((mesh.n_elements, bs)),
+                            dtype=torch.float32, device=dev)
         for scaling in ("measure", "normal"):
             for dirichlet in (True, False):
                 op = UniformStencilOperator(basis, PENALTY, dirichlet,
@@ -112,27 +192,44 @@ def check_kernel(dev):
                 abs_err = float((yk - yt).abs().max())
                 rel = abs_err / float(yt.abs().max())
                 ok = bool(torch.isfinite(yk).all()) and rel <= TOL_KERNEL
-                print(f"kernel-vs-twin cells={cells} p={p} {scaling:7s} "
+                print(f"kernel-vs-twin cells={cells} p={p} "
+                      f"{kernel_layout(bs)[0]:8s} {scaling:7s} "
                       f"dirichlet={dirichlet!s:5s} max_abs_err={abs_err:.3e} "
                       f"rel={rel:.3e} {'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     raise AssertionError(f"K1 disagrees with its twin at "
                                          f"{cells} p={p}: rel {rel:.3e}")
                 worst = max(worst, rel)
-                if (len(cells) == 3 and cells[0] == 32 and dirichlet
-                        and scaling == SCALING):
-                    tk = event_times(lambda: op({p: u}), 30)
-                    tt = event_times(lambda: twin({p: u}), 30)
-                    timing[p] = dict(ms=float(np.median(tk)),
-                                     plain_ms=float(np.median(tt)),
-                                     max_abs_err=abs_err)
-                    print(f"apply-time cells={cells} p={p} bs={(p + 1) ** 3} "
-                          f"kernel_median_ms={timing[p]['ms']:.4f} "
-                          f"plain_median_ms={timing[p]['plain_ms']:.4f}",
-                          flush=True)
+                if (cells, p) in timed and dirichlet and scaling == SCALING:
+                    timing[(cells, p)] = time_level(
+                        f"cells={cells} p={p}", op, twin, u, yk, abs_err, dev)
     print(f"kernel-vs-twin: {len(cases) * 4} cases, worst rel err "
           f"{worst:.3e} (bound {TOL_KERNEL:g})", flush=True)
     return timing
+
+
+def time_level(label, op, twin, u, yk, abs_err, dev) -> dict:
+    """K1's times at one level against its bound, the plain twin and the
+    library call."""
+    p = op.p
+    tk = float(np.median(event_times(lambda: op({p: u}), 30)))
+    tt = float(np.median(event_times(lambda: twin({p: u}), 30)))
+    prof = profile_apply(lambda: op({p: u}), reps=30)
+    dev_ms = prof["device_ms"] if prof else None
+    bound, bound_by = k1_bound(op)
+    lib, err = library_ms(op, u, yk, dev)
+    t = dict(ms=tk, plain_ms=tt, device_ms=dev_ms, bound_ms=bound,
+             bound_by=bound_by, library_ms=lib, max_abs_err=abs_err)
+    print(f"apply-time {label} bs={op.tables.bs} "
+          f"K1_median_ms={tk:.4f} K1_device_ms="
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'} "
+          f"bound_ms={bound:.4f} ({bound_by}) share_of_bound="
+          f"{bound / tk:.3f}"
+          + ("" if dev_ms is None else f" (device {bound / dev_ms:.3f})")
+          + f" plain_median_ms={tt:.4f} library_ms="
+          + (f"{lib:.4f}" if lib is not None else f"refused ({err})"),
+          flush=True)
+    return t
 
 
 def solve(n: int, dev, p: int = 4, chain_k: int = 2):
@@ -233,7 +330,46 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2):
           f"loop_s={res['seconds_loop']:.3f} peak_mem_bytes={peak} "
           f"K1_launches={launches} expected={expected} "
           f"({per_cycle} per V-cycle)", flush=True)
+    prof = profile_cycles(step, x0, b32) if n == 32 else None
+    if prof is not None:
+        print(f"solve n={n}^3 profile (3 V-cycles): K1 {prof['k1_ms']:.3f} "
+              f"device ms/cycle ({prof['k1_launches']:.0f} launches), all "
+              f"kernels {prof['device_ms']:.3f} device ms/cycle "
+              f"({prof['launches']:.0f} launches), wall "
+              f"{prof['wall_ms']:.3f} ms/cycle, busy share "
+              f"{prof['device_ms'] / prof['wall_ms']:.3f}", flush=True)
+    elif n == 32:
+        print(f"solve n={n}^3 profile: not measured (no device events)",
+              flush=True)
     return dict(ndof=basis.ndof, launches=launches)
+
+
+def profile_cycles(step, x0, b32, cycles: int = 3):
+    """Device ms of K1 and of all kernels, and wall ms, per V-cycle over
+    a profiler window of ``cycles`` V-cycles; ``None`` where the profiler
+    saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step(x0, b32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(cycles):
+            step(x0, b32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    k1 = [a for a in kernels if "stencil_" in a.key]
+    return dict(
+        k1_ms=sum(a.device_time_total for a in k1) / 1e3 / cycles,
+        k1_launches=sum(a.count for a in k1) / cycles,
+        device_ms=sum(a.device_time_total for a in kernels) / 1e3 / cycles,
+        launches=sum(a.count for a in kernels) / cycles,
+        wall_ms=1e3 * wall / cycles)
 
 
 def profile_apply(fn, reps: int = 5):
@@ -463,6 +599,10 @@ def main() -> int:
     log = f"{uniform_stencil.library_path()}.log"
     if os.path.exists(log):
         print(open(log).read().strip(), flush=True)
+    for bs in (125, 27, 8, 64):
+        print(f"K1 {uniform_stencil.kernel_layout(bs)[0]} (bs={bs}): "
+              f"{uniform_stencil.occupancy(bs)} resident blocks per SM",
+              flush=True)
 
     # ---- phase 3: kernel vs plain twin ----
     timing = check_kernel(dev)
@@ -478,7 +618,7 @@ def main() -> int:
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    t4 = timing[4]
+    t4 = timing[((32, 32, 32), 4)]
     summary = {"kernels": [{
         "name": "uniform_stencil",
         "route": "cuda",
@@ -488,6 +628,9 @@ def main() -> int:
         "max_abs_err": t4["max_abs_err"],
         "ms": t4["ms"],
         "plain_ms": t4["plain_ms"],
+        "bound_ms": t4["bound_ms"],
+        "bound_by": t4["bound_by"],
+        "library_ms": t4["library_ms"],
     }]}
     print(smi(), flush=True)
     print(json.dumps(summary), flush=True)

@@ -236,7 +236,7 @@ def dedup_spmv_from_plan(basis, penalty: float = 2.0,
     parts = assemble_laplace(
         basis, penalty=penalty, dirichlet=dirichlet, plan=plan,
         penalty_scaling=penalty_scaling, dg_form=dg_form, sigma1=sigma1,
-        coef_parts=True)
+        coef_parts=True, device="cpu")
     pattern = plan.pattern
     prep = {}
     stats = {"n_unique": {}, "nnz": {}, "dedup": {}}

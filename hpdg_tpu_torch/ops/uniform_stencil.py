@@ -7,6 +7,12 @@ host-built f64 matrices cast to f32:
 
     y[e] = Tdiag[vid[e]] u[e] + sum_ax ( has_p M12_ax u[e+s_ax] + has_m M21_ax u[e-s_ax] )
 
+A tile of elements of one diagonal variant is one GEMM whose K stacks
+the variant's products (:func:`kernel_plan` builds the tiles and the
+product lists on the host).  The block size picks the instantiation
+(:func:`kernel_layout`): a register-tiled GEMM for bs = 125 and for every
+other bs <= 128, a one-thread-per-element kernel for bs = 27 and 8.
+
 It is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``hpdg_tpu_torch/_build/`` (keyed by the source's hash) and bound with
 ctypes.  :class:`UniformStencilOperator` runs the plain twin for CPU
@@ -39,16 +45,39 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-# mirrors tile_elems() in the CUDA source (checked against it at load)
-_THREADS, _ROWS_PER_THREAD, _COLS_PER_THREAD = 256, 4, 4
+# mirror the CUDA source (checked against it at load)
+INSTANTIATIONS = ("gemm125", "small27", "small8", "generic")
+MAX_PRODUCTS = 7  # 1 + 2 dim
+_GEMM_TILE, _GEMM_KC, _GEMM_N = 128, 32, 128
+_SMALL_TILE = 128
 
 _lib = None  # the loaded shared library (one per process)
 
 
-def tile_elems(bs: int) -> int:
-    """Elements per kernel tile for block size ``bs``."""
-    col_groups = -(-bs // _COLS_PER_THREAD)
-    return (_THREADS // col_groups) * _ROWS_PER_THREAD
+def kernel_layout(bs: int) -> tuple:
+    """``(instantiation, tile elements, K, N)`` for block size ``bs``:
+    each stored matrix is ``[K, N]``, zero-padded from ``[bs, bs]``.
+    Raises ValueError where the kernel does not take ``bs``."""
+    if not 1 <= bs <= _GEMM_N:
+        raise ValueError(f"uniform stencil kernel: block size {bs} is not "
+                         f"in 1..{_GEMM_N}")
+    if bs in (27, 8):
+        return f"small{bs}", _SMALL_TILE, bs, -(-bs // 4) * 4
+    return ("gemm125" if bs == 125 else "generic", _GEMM_TILE,
+            -(-bs // _GEMM_KC) * _GEMM_KC, _GEMM_N)
+
+
+def tile_order(products: int, count: int) -> tuple:
+    """Launch-order key of a tile of ``count`` elements.
+
+    The GEMM instantiations' persistent grid of G resident blocks takes
+    tiles round-robin (block b: b, b + G, ...).  A short tile (one warp
+    row, 32 elements or fewer) ends soon whatever its products, so short
+    tiles go first, and the tiles past the first round land on the
+    blocks that drew them; the rest run in falling order of cost,
+    products x 32-element warp rows.
+    """
+    return count > 32, -products * -(-count // 32)
 
 
 def _nvcc() -> str:
@@ -89,36 +118,64 @@ def build() -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     ptr, cint = ctypes.c_void_p, ctypes.c_int
-    lib.hpdg_uniform_stencil_f32.argtypes = [ptr] * 8 + [cint] * 6 + [ptr]
+    lib.hpdg_uniform_stencil_f32.argtypes = [ptr] * 8 + [cint] * 5 + [ptr]
     lib.hpdg_uniform_stencil_f32.restype = cint
-    lib.hpdg_uniform_stencil_tile_elems.argtypes = [cint]
-    lib.hpdg_uniform_stencil_tile_elems.restype = cint
-    for bs in (8, 27, 125):
-        if lib.hpdg_uniform_stencil_tile_elems(bs) != tile_elems(bs):
-            raise RuntimeError("tile size of the CUDA source and of "
+    lib.hpdg_uniform_stencil_layout.argtypes = [cint,
+                                                ctypes.POINTER(cint)]
+    lib.hpdg_uniform_stencil_layout.restype = cint
+    lib.hpdg_uniform_stencil_occupancy.argtypes = [cint]
+    lib.hpdg_uniform_stencil_occupancy.restype = cint
+    out = (cint * 4)()
+    for bs in (125, 27, 8, 64, 25, 1, 128):
+        kind, tile, k, n = kernel_layout(bs)
+        if (lib.hpdg_uniform_stencil_layout(bs, out) != 0
+                or tuple(out) != (INSTANTIATIONS.index(kind), tile, k, n)):
+            raise RuntimeError("kernel layout of the CUDA source and of "
                                "ops.uniform_stencil disagree")
     _lib = lib
     return lib
+
+
+def occupancy(bs: int) -> int:
+    """Resident blocks per SM of the instantiation that takes block size
+    ``bs``, on the current CUDA device."""
+    blocks = build().hpdg_uniform_stencil_occupancy(bs)
+    if blocks < 1:
+        raise RuntimeError(f"uniform stencil kernel: no occupancy for "
+                           f"block size {bs}")
+    return blocks
 
 
 @dataclass(frozen=True)
 class KernelPlan:
     """Host-side launch tables of the kernel (numpy)."""
 
+    instantiation: str  # one of INSTANTIATIONS
+    tile: int  # elements per tile
+    k: int  # rows of each stored matrix (bs padded)
+    n: int  # columns of each stored matrix (bs padded)
     strides: tuple  # element stride of each lattice axis
-    var_mask: np.ndarray  # (nvar,) int32: bit 2ax = +ax nbr, 2ax+1 = -ax
+    prod_mat: np.ndarray  # (nvar, 7) int32: stored matrix of each product
+    prod_shift: np.ndarray  # (nvar, 7) int32: element shift of its rows
+    prod_count: np.ndarray  # (nvar,) int32: products of each variant
     elems: np.ndarray  # (n,) int32 element ids grouped by variant
     tiles: np.ndarray  # (ntiles, 3) int32 (variant, start, count)
 
 
 def kernel_plan(basis: DGBasis, st: StencilTables) -> KernelPlan:
-    """Strides, variant masks and tiles; raises ValueError where the
-    kernel's addressing (C-lattice order, neighbours at +-stride) does
-    not hold."""
+    """Tiles and per-variant product lists; raises ValueError where the
+    kernel's addressing (C-lattice order, neighbours at +-stride) or its
+    block sizes do not hold.
+
+    Stored matrix ``k < nvar`` is variant k's Tdiag, ``nvar + 2 ax`` is
+    M12_ax and ``nvar + 2 ax + 1`` is M21_ax.  A variant's products are its
+    Tdiag (shift 0), then per axis the +ax (shift +s_ax) and -ax (shift
+    -s_ax) couplings that exist.  Launch order (:func:`tile_order`): the
+    short tiles first, then the others in falling order of cost.
+    """
     if st.dim not in (2, 3):
         raise ValueError("uniform stencil kernel: 2D/3D only")
-    if st.bs > 128:
-        raise ValueError(f"uniform stencil kernel: block size {st.bs} > 128")
+    kind, tile, k, n = kernel_layout(st.bs)
     cells = _lattice_shape(basis.mesh)  # raises unless C-lattice order
     dim = st.dim
     strides = tuple(int(np.prod(cells[a + 1:])) for a in range(dim))
@@ -129,31 +186,52 @@ def kernel_plan(basis: DGBasis, st: StencilTables) -> KernelPlan:
                 and np.array_equal(st.nbr_m[ax][hm], ar[hm] - strides[ax])):
             raise ValueError("uniform stencil kernel: neighbours are not "
                              "at the lattice strides")
-    var_mask = np.zeros(len(st.variants), np.int32)
-    for k, code in enumerate(st.variants):
-        cc = int(code)
-        for ax in range(dim - 1, -1, -1):
-            var_mask[k] |= (((cc >> 1) & 1) << (2 * ax)) | ((cc & 1) << (2 * ax + 1))
-            cc >>= 2
+    nvar = len(st.variants)
+    prod_mat = np.zeros((nvar, MAX_PRODUCTS), np.int32)
+    prod_shift = np.zeros((nvar, MAX_PRODUCTS), np.int32)
+    prod_count = np.zeros(nvar, np.int32)
+    for v, code in enumerate(st.variants):
+        prods = [(v, 0)]
+        for ax in range(dim):  # code: per axis, slowest first, 2 has_p + has_m
+            bits = (int(code) >> (2 * (dim - 1 - ax))) & 3
+            if bits & 2:
+                prods.append((nvar + 2 * ax, strides[ax]))
+            if bits & 1:
+                prods.append((nvar + 2 * ax + 1, -strides[ax]))
+        prod_count[v] = len(prods)
+        prod_mat[v, :len(prods)], prod_shift[v, :len(prods)] = zip(*prods)
     elems = np.argsort(st.vid, kind="stable").astype(np.int32)
-    counts = np.bincount(st.vid, minlength=len(st.variants))
-    te = tile_elems(st.bs)
-    tiles, start = [], 0
-    for k, c in enumerate(counts):
-        for off in range(0, int(c), te):
-            tiles.append((k, start + off, min(te, int(c) - off)))
-        start += int(c)
-    return KernelPlan(strides=strides, var_mask=var_mask, elems=elems,
+    counts = np.bincount(st.vid, minlength=nvar)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    tiles = [(v, int(starts[v]) + off, min(tile, int(counts[v]) - off))
+             for v in range(nvar) for off in range(0, int(counts[v]), tile)]
+    tiles.sort(key=lambda t: tile_order(int(prod_count[t[0]]), t[2]))
+    return KernelPlan(instantiation=kind, tile=tile, k=k, n=n,
+                      strides=strides, prod_mat=prod_mat,
+                      prod_shift=prod_shift, prod_count=prod_count,
+                      elems=elems,
                       tiles=np.asarray(tiles, np.int32).reshape(-1, 3))
+
+
+def stored_matrices(st: StencilTables, kp: KernelPlan) -> np.ndarray:
+    """``[nvar + 2 dim, K, N]`` f64: the stencil's matrices transposed
+    (``y[e] = u[e] @ Mt``), zero-padded to the kernel's layout."""
+    mats = [*st.Tdiag] + [m for ax in range(st.dim)
+                          for m in (st.M12[ax], st.M21[ax])]
+    out = np.zeros((len(mats), kp.k, kp.n))
+    for i, m in enumerate(mats):
+        out[i, :st.bs, :st.bs] = m.T
+    return out
 
 
 class UniformStencilOperator:
     """``apply(x) -> A x`` for bucket dicts on one full uniform lattice.
 
     CPU tensors run the plain twin (``uniform_sipg_operator``) in their
-    own dtype.  CUDA tensors run the kernel: f32, contiguous, shape
-    ``[n, bs]``, on the device the operator was built for; anything else
-    raises.  ``launches`` counts kernel launches.
+    own dtype.  CUDA tensors run the kernel: f32, contiguous, 16-byte
+    aligned, shape ``[n, bs]`` with n bs < 2^31, on the device the
+    operator was built for; anything else raises.  ``launches`` counts
+    kernel launches.
     """
 
     def __init__(self, basis: DGBasis, penalty: float = 2.0,
@@ -175,17 +253,15 @@ class UniformStencilOperator:
     def _device_tables(self) -> dict:
         st = self.tables
         kp = kernel_plan(self.basis, st)
-        f32 = lambda a: torch.as_tensor(  # noqa: E731
-            np.ascontiguousarray(a), dtype=torch.float32, device=self.device)
         i32 = lambda a: torch.as_tensor(  # noqa: E731
             np.ascontiguousarray(a), dtype=torch.int32, device=self.device)
-        # stored transposed (Mt[j][i] = M[i][j]): y[e] = u[e] @ Mt
-        return dict(tdiag=f32(st.Tdiag.transpose(0, 2, 1)),
-                    mplus=f32(st.M12.transpose(0, 2, 1)),
-                    mminus=f32(st.M21.transpose(0, 2, 1)),
+        return dict(mats=torch.as_tensor(stored_matrices(st, kp),
+                                         dtype=torch.float32,
+                                         device=self.device),
                     tiles=i32(kp.tiles), elems=i32(kp.elems),
-                    var_mask=i32(kp.var_mask),
-                    strides=tuple(kp.strides) + (0,) * (3 - st.dim))
+                    prod_mat=i32(kp.prod_mat), prod_shift=i32(kp.prod_shift),
+                    prod_count=i32(kp.prod_count), nvar=len(st.variants),
+                    nnbr=2 * st.dim)
 
     def __call__(self, x: dict) -> dict:
         u = x[self.p]
@@ -210,16 +286,22 @@ class UniformStencilOperator:
         if tuple(u.shape) != (n, st.bs) or not u.is_contiguous():
             raise ValueError(f"uniform stencil kernel takes a contiguous "
                              f"[{n}, {st.bs}] tensor, got {tuple(u.shape)}")
+        if u.data_ptr() % 16:
+            raise ValueError("uniform stencil kernel takes a 16-byte "
+                             "aligned tensor")
+        if u.numel() >= 2 ** 31:
+            raise ValueError("uniform stencil kernel takes fewer than 2^31 "
+                             "values (32-bit offsets)")
         lib = build()
         k = self._k
         y = torch.empty_like(u)
         stream = torch.cuda.current_stream(self.device).cuda_stream
         rc = lib.hpdg_uniform_stencil_f32(
-            u.data_ptr(), y.data_ptr(), k["tdiag"].data_ptr(),
-            k["mplus"].data_ptr(), k["mminus"].data_ptr(),
+            u.data_ptr(), y.data_ptr(), k["mats"].data_ptr(),
             k["tiles"].data_ptr(), k["elems"].data_ptr(),
-            k["var_mask"].data_ptr(), k["tiles"].shape[0], st.bs, st.dim,
-            *k["strides"], stream)
+            k["prod_mat"].data_ptr(), k["prod_shift"].data_ptr(),
+            k["prod_count"].data_ptr(), k["tiles"].shape[0], n, st.bs,
+            k["nvar"], k["nnbr"], stream)
         if rc != 0:
             raise RuntimeError(f"uniform stencil kernel launch failed: "
                                f"CUDA error {rc}")
@@ -232,6 +314,6 @@ def uniform_stencil_operator(basis: DGBasis, penalty: float = 2.0,
                              penalty_scaling: str = "measure",
                              device=None) -> UniformStencilOperator:
     """The level operator of the multigrid: K1 on the card, its plain
-    twin on the CPU."""
+    twin on the CPU (``device="cpu"``)."""
     return UniformStencilOperator(basis, penalty, dirichlet,
                                   penalty_scaling, device)

@@ -157,7 +157,8 @@ def matrixfree_multigrid_solver(basis: DGBasis, penalty: float = 2.0,
         smoothers.append(sm)
 
     Ac = assemble_laplace(cb, penalty=penalty, dirichlet=dirichlet,
-                          penalty_scaling=penalty_scaling, dtype=dtype)
+                          penalty_scaling=penalty_scaling, dtype=dtype,
+                          device="cpu")
     coarse_solve = dense_coarse_solver(cb, Ac, dtype=dtype, device=device)
 
     def step(x: dict, b: dict) -> dict:

@@ -120,7 +120,7 @@ class UniformPatchSmoother:
         pbasis = DGBasis(pmesh, np.full(pmesh.n_elements, p, dtype=np.int32))
         Ap = assemble_laplace(pbasis, penalty=penalty, dirichlet=dirichlet,
                               penalty_scaling=penalty_scaling,
-                              dtype=torch.float64)
+                              dtype=torch.float64, device="cpu")
 
         k = 1 << dim
         # corner offsets in refine()'s child_pos convention: bit

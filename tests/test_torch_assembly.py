@@ -25,6 +25,8 @@ from hpdg_tpu_torch.assemble import l2_functional as t_l2
 from hpdg_tpu_torch.basis.dgbasis import DGBasis as TBasis
 from hpdg_tpu_torch.linalg import blockmatrix as tbm
 
+CPU = "cpu"  # the port defaults to the card; these tests run on the CPU
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
@@ -54,7 +56,7 @@ def test_assemble_laplace_matches_reference(cells, p, upper, scaling,
     rb, tb = _pair(cells, np.full(n, p), upper)
     kw = dict(penalty=3.0, dirichlet=dirichlet, penalty_scaling=scaling)
     RA = r_assemble(rb, dtype=jnp.float64, **kw)
-    TA = t_assemble(tb, dtype=torch.float64, **kw)
+    TA = t_assemble(tb, dtype=torch.float64, **kw, device=CPU)
     assert RA.values.keys() == TA.values.keys()
     scale = max(float(np.abs(np.asarray(v)).max()) for v in RA.values.values())
     for k in RA.values:
@@ -70,7 +72,7 @@ def test_assemble_mixed_degrees_and_forms(dg_form, sigma1):
     rb, tb = _pair((3, 2), degrees)
     kw = dict(penalty=4.0, dirichlet=True, dg_form=dg_form, sigma1=sigma1)
     Rd = rbm.to_dense(r_assemble(rb, dtype=jnp.float64, **kw), rb)
-    Td = tbm.to_dense(t_assemble(tb, **kw), tb)
+    Td = tbm.to_dense(t_assemble(tb, **kw, device=CPU), tb)
     np.testing.assert_allclose(Rd, Td, rtol=0, atol=1e-12 * np.abs(Rd).max())
 
 
@@ -82,12 +84,12 @@ def test_assembled_matvec_matches_reference():
     RA = r_assemble(rb, penalty=2.0, dirichlet=True, dtype=jnp.float64)
     TA = convert.block_sparse_matrix(
         RA.pattern.row_sizes, RA.pattern.col_sizes, RA.pattern.entries,
-        {k: np.asarray(v) for k, v in RA.values.items()}, RA.dim)
+        {k: np.asarray(v) for k, v in RA.values.items()}, RA.dim, device=CPU)
     rng = np.random.default_rng(3)
     x = {p: rng.standard_normal((rb.bucket_size(p), rb.n_local(p)))
          for p in rb.bucket_degrees}
     ry = rbm.matvec(RA, {p: jnp.asarray(v) for p, v in x.items()})
-    ty = tbm.matvec(TA, convert.bucket_dict(x))
+    ty = tbm.matvec(TA, convert.bucket_dict(x, device=CPU))
     for p in x:
         np.testing.assert_allclose(np.asarray(ry[p]), ty[p].numpy(),
                                    rtol=0, atol=1e-13 * np.abs(ry[p]).max())
@@ -104,7 +106,7 @@ def test_l2_functional_matches_reference(cells, p):
         return torch.sin(np.pi * x[..., 0]) * (1.0 + x[..., -1] ** 2)
 
     rbv = r_l2(rb, f_ref, dtype=jnp.float64)
-    tbv = t_l2(tb, f_port, dtype=torch.float64)
+    tbv = t_l2(tb, f_port, dtype=torch.float64, device=CPU)
     for q in rbv:
         want = np.asarray(rbv[q])
         np.testing.assert_allclose(tbv[q].numpy(), want, rtol=0,
@@ -119,7 +121,8 @@ def test_blockvector_ops_match_reference():
     rng = np.random.default_rng(9)
     f1, f2 = rng.standard_normal(rb.ndof), rng.standard_normal(rb.ndof)
     rx, ry = rbv.from_flat(rb, f1), rbv.from_flat(rb, f2)
-    tx, ty = tbv.from_flat(tb, f1), tbv.from_flat(tb, f2)
+    tx = tbv.from_flat(tb, f1, device=CPU)
+    ty = tbv.from_flat(tb, f2, device=CPU)
     for p in rb.bucket_degrees:
         np.testing.assert_array_equal(np.asarray(rx[p]), tx[p].numpy())
     np.testing.assert_array_equal(tbv.to_flat(tb, tx), f1)
@@ -130,7 +133,7 @@ def test_blockvector_ops_match_reference():
              (rbv.add(rx, ry), tbv.add(tx, ty)),
              (rbv.sub(rx, ry), tbv.sub(tx, ty)),
              (rbv.scale(-2.5, rx), tbv.scale(-2.5, tx)),
-             (rbv.zeros(rb), tbv.zeros(tb))]
+             (rbv.zeros(rb), tbv.zeros(tb, device=CPU))]
     for want, got in pairs:
         np.testing.assert_allclose(rbv.to_flat(rb, want), tbv.to_flat(tb, got),
                                    rtol=0, atol=1e-15 * np.abs(f1).max() * 4)
@@ -149,7 +152,7 @@ def test_assemble_diffusion_matches_reference(case, kind, dg_form, sigma1):
     kw = dict(penalty=3.0, dirichlet=True, penalty_scaling="normal",
               dg_form=dg_form, sigma1=sigma1)
     RA = r_assemble(rb, diffusion=k_ref, dtype=jnp.float64, **kw)
-    TA = t_assemble(tb, diffusion=k_port, **kw)
+    TA = t_assemble(tb, diffusion=k_port, **kw, device=CPU)
     assert RA.values.keys() == TA.values.keys()
     Rd = rbm.to_dense(RA, rb)
     np.testing.assert_allclose(Rd, tbm.to_dense(TA, tb), rtol=0,
@@ -166,7 +169,7 @@ def test_assemble_coef_parts_matches_reference(case, dirichlet, scaling):
     rb, tb = hanging_pair(case)
     kw = dict(penalty=2.0, dirichlet=dirichlet, penalty_scaling=scaling)
     RA = r_assemble(rb, dtype=jnp.float64, **kw)
-    parts = t_assemble(tb, coef_parts=True, **kw)
+    parts = t_assemble(tb, coef_parts=True, **kw, device=CPU)
     assert parts.keys() == RA.values.keys()
     scale = max(float(np.abs(np.asarray(v)).max()) for v in RA.values.values())
     for key, (coef, D) in parts.items():
@@ -174,4 +177,5 @@ def test_assemble_coef_parts_matches_reference(case, dirichlet, scaling):
         got = (coef @ D).reshape(want.shape)
         assert np.abs(got - want).max() <= 1e-12 * scale, key
     with pytest.raises(ValueError, match="coef_parts"):
-        t_assemble(tb, coef_parts=True, diffusion=lambda x: x[..., 0])
+        t_assemble(tb, coef_parts=True, diffusion=lambda x: x[..., 0],
+                   device=CPU)

@@ -27,6 +27,8 @@ from hpdg_tpu_torch.matrixfree import dedup as tdedup
 
 from test_torch_sumfact import assert_close, hanging_pair, random_x
 
+CPU = "cpu"  # the port defaults to the card; these tests run on the CPU
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
@@ -58,7 +60,7 @@ def test_coef_tables_and_unique_rows_bitwise(case):
     kw = dict(penalty=2.0, dirichlet=True, penalty_scaling="normal",
               coef_parts=True)
     rparts = r_assemble(rb, **kw)
-    tparts = t_assemble(tb, **kw)
+    tparts = t_assemble(tb, **kw, device=CPU)
     assert rparts.keys() == tparts.keys()
     for key in rparts:
         (rc, rD), (tc, tD) = rparts[key], tparts[key]
@@ -113,13 +115,15 @@ def test_dedup_from_plan_matches_reference_and_sumfact(case, dirichlet,
               dg_form=dg_form, sigma1=sigma1)
     x = random_x(rb, seed=3)
     rop, rst = rdedup.dedup_spmv_from_plan(rb, dtype=jnp.float64, **kw)
-    top, tst = tdedup.dedup_spmv_from_plan(tb, dtype=torch.float64, **kw)
+    top, tst = tdedup.dedup_spmv_from_plan(tb, dtype=torch.float64, **kw,
+                                           device=CPU)
     assert rst["n_unique"] == tst["n_unique"]
     assert rst["dedup"] == tst["dedup"]
     assert rst["compression"] == tst["compression"]
-    ty = top(convert.bucket_dict(x))
+    ty = top(convert.bucket_dict(x, device=CPU))
     assert_close(rop({p: jnp.asarray(v) for p, v in x.items()}), ty)
-    sf = tmf.sipg_operator(tb, **kw)(convert.bucket_dict(x))
+    sf = tmf.sipg_operator(tb, **kw, device=CPU)(
+        convert.bucket_dict(x, device=CPU))
     assert_close({p: v.numpy() for p, v in sf.items()}, ty)
 
 
@@ -131,16 +135,16 @@ def test_dedup_operator_from_matrix(frac):
     RA = r_assemble(rb, penalty=2.0, dirichlet=True, dtype=jnp.float64)
     TA = convert.block_sparse_matrix(
         RA.pattern.row_sizes, RA.pattern.col_sizes, RA.pattern.entries,
-        {k: np.asarray(v) for k, v in RA.values.items()}, RA.dim)
+        {k: np.asarray(v) for k, v in RA.values.items()}, RA.dim, device=CPU)
     x = random_x(rb, seed=6)
     rop, rst = rdedup.dedup_spmv_operator(RA, dtype=jnp.float64,
                                           max_unique_frac=frac)
     top, tst = tdedup.dedup_spmv_operator(TA, dtype=torch.float64,
-                                          max_unique_frac=frac)
+                                          max_unique_frac=frac, device=CPU)
     assert rst["n_unique"] == tst["n_unique"]
     assert rst["dedup"] == tst["dedup"]
     assert_close(rop({p: jnp.asarray(v) for p, v in x.items()}),
-                 top(convert.bucket_dict(x)))
+                 top(convert.bucket_dict(x, device=CPU)))
 
 
 def test_dedup_blocks_and_size_classes():
@@ -151,7 +155,7 @@ def test_dedup_blocks_and_size_classes():
     RA = r_assemble(rb, penalty=2.0, dirichlet=True, dtype=jnp.float64)
     vals = {k: np.asarray(v) for k, v in RA.values.items()}
     rg = rdedup.dedup_blocks(RA.pattern, vals)
-    TA = t_assemble(tb, penalty=2.0, dirichlet=True)
+    TA = t_assemble(tb, penalty=2.0, dirichlet=True, device=CPU)
     tg = tdedup.dedup_blocks(TA.pattern, {k: v.numpy()
                                           for k, v in TA.values.items()})
     assert rg.keys() == tg.keys()
@@ -161,7 +165,7 @@ def test_dedup_blocks_and_size_classes():
         np.testing.assert_allclose(rg[key][3], tg[key][3], rtol=0,
                                    atol=1e-12 * np.abs(rg[key][3]).max())
     op, st = tdedup.dedup_spmv_operator(TA, dtype=torch.float64,
-                                        max_unique_frac=1.0)
+                                        max_unique_frac=1.0, device=CPU)
     n_class = 0
     for key, item in op.prep.items():
         assert item[0] == "dedup"

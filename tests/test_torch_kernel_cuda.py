@@ -24,6 +24,8 @@ from hpdg_tpu_torch.matrixfree.uniform import (uniform_sipg_factorized,
 from hpdg_tpu_torch.ops import uniform_stencil as us
 from hpdg_tpu_torch.solvers import matrixfree_multigrid_solver, refinement_solve
 
+CPU = "cpu"  # the port defaults to the card; these tests run on the CPU
+
 pytestmark = pytest.mark.cuda
 KW = dict(penalty=2.0, dirichlet=True, penalty_scaling="normal")
 
@@ -40,9 +42,13 @@ def _basis(cells, p):
     return DGBasis(m, np.full(m.n_elements, p))
 
 
+# every instantiation (gemm125, small27, small8, generic) on lattices that
+# are no multiple of its tile, plus degenerate and 2D shapes
 @pytest.mark.parametrize("cells,p", [((4, 2, 3), 2), ((3, 3, 3), 1),
                                      ((1, 3, 2), 2), ((6, 5, 4), 4),
-                                     ((5, 3), 4)])
+                                     ((5, 3), 4), ((7, 9, 11), 4),
+                                     ((13, 5, 7), 2), ((9, 11, 13), 1),
+                                     ((5, 6, 7), 3)])
 @pytest.mark.parametrize("dirichlet", [True, False])
 def test_kernel_matches_twin(dev, cells, p, dirichlet):
     tb = _basis(cells, p)
@@ -77,14 +83,14 @@ def test_vcycle_on_card_matches_cpu_twin_path(dev):
                                               dtype=torch.float32,
                                               device=dev, **KW)
     cstep, _ = matrixfree_multigrid_solver(tb, meshes=meshes,
-                                           dtype=torch.float32, **KW)
+                                           dtype=torch.float32, **KW, device=CPU)
     rng = np.random.default_rng(6)
     x = {2: rng.standard_normal((216, 27))}
     b = {2: rng.standard_normal((216, 27))}
     yg = gstep(convert.bucket_dict(x, torch.float32, dev),
                convert.bucket_dict(b, torch.float32, dev))[2].cpu()
-    yc = cstep(convert.bucket_dict(x, torch.float32),
-               convert.bucket_dict(b, torch.float32))[2]
+    yc = cstep(convert.bucket_dict(x, torch.float32, device=CPU),
+               convert.bucket_dict(b, torch.float32, device=CPU))[2]
     assert float((yg - yc).norm() / yc.norm()) < 1e-5
     # one V-cycle: 2 sweeps x 8 colors + 1 residual on each of 2 levels
     assert sum(op.launches for op in info["operators"]) == 34
@@ -99,7 +105,7 @@ def test_refinement_solve_on_card_verifies(dev):
     f = lambda x: torch.sin(np.pi * x[..., 0]) * (1.0 + x[..., 1])  # noqa: E731
     b64 = l2_functional(tb, f, device=dev)
     A64 = uniform_sipg_factorized(tb, device=dev, **KW)
-    A_host = uniform_sipg_factorized(tb, **KW)
+    A_host = uniform_sipg_factorized(tb, **KW, device=CPU)
     b_host = {k: v.cpu() for k, v in b64.items()}
     x64, info = refinement_solve(
         step, lambda x: bv.sub(b64, A64(x)), b64, chain_k=2, tol=1e-8,

@@ -32,6 +32,8 @@ from hpdg_tpu_torch.solvers.multigrid import \
     matrixfree_multigrid_solver as t_mg
 from hpdg_tpu_torch.solvers.patches import uniform_patch_smoother as t_ups
 
+CPU = "cpu"  # the port defaults to the card; these tests run on the CPU
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
@@ -66,13 +68,14 @@ def test_patch_smoother_step_matches_reference(cells, p, reverse):
     tb = TBasis(tmesh.structured(cells), np.full(n, p))
     rstep = r_ups(r_sipg(rb, dtype=jnp.float64, **KW), rb, 2.0,
                   dirichlet=True, penalty_scaling="normal", reverse=reverse)
-    tstep = t_ups(uniform_stencil_operator(tb, **KW), tb, 2.0,
-                  dirichlet=True, penalty_scaling="normal", reverse=reverse)
+    tstep = t_ups(uniform_stencil_operator(tb, **KW, device=CPU), tb, 2.0,
+                  dirichlet=True, penalty_scaling="normal", reverse=reverse,
+                  device=CPU)
     x, b = _rand(rb, 3), _rand(rb, 4)
     want = rstep({q: jnp.asarray(v) for q, v in x.items()},
                  {q: jnp.asarray(v) for q, v in b.items()})
-    xt = convert.bucket_dict(x)
-    got = tstep(xt, convert.bucket_dict(b))
+    xt = convert.bucket_dict(x, device=CPU)
+    got = tstep(xt, convert.bucket_dict(b, device=CPU))
     assert _rel(got, want) < 1e-11
     np.testing.assert_array_equal(xt[p].numpy(), x[p])  # x is not mutated
 
@@ -87,7 +90,7 @@ def hierarchy():
     rstep, _ = r_mg(rb, meshes=rms, use_pallas=False, smoother="patch",
                     dtype=jnp.float64, **KW)
     tstep, info = t_mg(tb, meshes=tms, smoother="patch",
-                       dtype=torch.float64, **KW)
+                       dtype=torch.float64, **KW, device=CPU)
     return rb, tb, jax.jit(rstep), tstep, info
 
 
@@ -98,7 +101,8 @@ def test_vcycle_matches_reference(hierarchy):
     x, b = _rand(rb, 5), _rand(rb, 6)
     want = rstep({q: jnp.asarray(v) for q, v in x.items()},
                  {q: jnp.asarray(v) for q, v in b.items()})
-    got = tstep(convert.bucket_dict(x), convert.bucket_dict(b))
+    got = tstep(convert.bucket_dict(x, device=CPU),
+                convert.bucket_dict(b, device=CPU))
     assert _rel(got, want) < 1e-11
 
 
@@ -106,9 +110,9 @@ def test_contraction_rate_matches_reference(hierarchy):
     rb, tb, rstep, tstep, _ = hierarchy
     b = _rand(rb, 7)
     rop = r_sipg(rb, dtype=jnp.float64, **KW)
-    top = uniform_sipg_factorized(tb, dtype=torch.float64, **KW)
+    top = uniform_sipg_factorized(tb, dtype=torch.float64, **KW, device=CPU)
     bj = {q: jnp.asarray(v) for q, v in b.items()}
-    bt = convert.bucket_dict(b)
+    bt = convert.bucket_dict(b, device=CPU)
     xr, xt = {q: jnp.zeros_like(v) for q, v in bj.items()}, tbv.zeros_like(bt)
     res_r, res_t = [1.0], [1.0]
     nb = float(np.sqrt(sum(np.sum(v ** 2) for v in b.values())))
@@ -127,7 +131,7 @@ def test_contraction_rate_matches_reference(hierarchy):
 def test_solver_refuses_unported_branches():
     tb = TBasis(tmesh.structured((2, 2, 2)), np.full(8, 2))
     with pytest.raises(NotImplementedError, match="Chebyshev"):
-        t_mg(tb, smoother="cheb", **KW)
+        t_mg(tb, smoother="cheb", **KW, device=CPU)
     tb5 = TBasis(tmesh.structured((2, 2, 2)), np.full(8, 5))
     with pytest.raises(NotImplementedError, match="1024"):
-        t_mg(tb5, **KW)
+        t_mg(tb5, **KW, device=CPU)

@@ -47,6 +47,8 @@ from hpdg_tpu_torch.solvers import smoothers as tsm
 
 from test_torch_sumfact import DIFFUSION, assert_close, hanging_pair
 
+CPU = "cpu"  # the port defaults to the card; these tests run on the CPU
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
@@ -64,16 +66,17 @@ def test_sipg_diagonal_blocks(case, kind, scaling):
     k_ref, k_port = DIFFUSION[kind]
     kw = dict(penalty=3.0, dirichlet=True, penalty_scaling=scaling)
     want = rmf.sipg_diagonal_blocks(rb, diffusion=k_ref, **kw)
-    got = tmf.sipg_diagonal_blocks(tb, diffusion=k_port, **kw)
+    got = tmf.sipg_diagonal_blocks(tb, diffusion=k_port, **kw, device=CPU)
     assert_close(want, got)
-    diag = tbm.extract_diagonal(t_assemble(tb, diffusion=k_port, **kw))
+    diag = tbm.extract_diagonal(t_assemble(tb, diffusion=k_port, **kw,
+                                           device=CPU))
     assert_close({p: v.numpy() for p, v in diag.items()}, got)
 
 
 def test_extract_diagonal_and_diag_slots():
     rb, tb = hanging_pair("2d")
     RA = r_assemble(rb, penalty=2.0, dirichlet=True)
-    TA = t_assemble(tb, penalty=2.0, dirichlet=True)
+    TA = t_assemble(tb, penalty=2.0, dirichlet=True, device=CPU)
     rs, ts = rbm.diag_slots(RA.pattern), tbm.diag_slots(TA.pattern)
     for p in rs:
         np.testing.assert_array_equal(rs[p], ts[p])
@@ -83,7 +86,7 @@ def test_extract_diagonal_and_diag_slots():
 def test_blockvector_random_draws_the_reference_numbers():
     rb, tb = hanging_pair("3d")
     for seed in (1887, 4):
-        want, got = rbv.random(rb, seed), tbv.random(tb, seed)
+        want, got = rbv.random(rb, seed), tbv.random(tb, seed, device=CPU)
         for p in want:
             np.testing.assert_array_equal(np.asarray(want[p]), got[p].numpy())
 
@@ -91,12 +94,13 @@ def test_blockvector_random_draws_the_reference_numbers():
 def test_block_jacobi_step_matches_reference():
     rb, tb = hanging_pair("2d")
     RA = r_assemble(rb, penalty=4.0, dirichlet=True)
-    TA = t_assemble(tb, penalty=4.0, dirichlet=True)
+    TA = t_assemble(tb, penalty=4.0, dirichlet=True, device=CPU)
     b = rbv.random(rb, 3)
-    rx, tx = rbv.zeros(rb), tbv.zeros(tb)
+    rx, tx = rbv.zeros(rb), tbv.zeros(tb, device=CPU)
     rstep, tstep = rsm.block_jacobi_step(RA, 0.6), tsm.block_jacobi_step(TA,
                                                                          0.6)
-    tb_ = convert.bucket_dict({p: np.asarray(v) for p, v in b.items()})
+    tb_ = convert.bucket_dict({p: np.asarray(v) for p, v in b.items()},
+                              device=CPU)
     for _ in range(3):
         rx, tx = rstep(rx, b), tstep(tx, tb_)
     assert_close(rx, tx)
@@ -120,11 +124,11 @@ def test_pcg_config1_matches_reference():
     rb = RBasis(rm, np.full(rm.n_elements, p))
     tb = TBasis(tm, np.full(tm.n_elements, p))
     RA = r_assemble(rb, penalty=2.0 * p, dirichlet=True)
-    TA = t_assemble(tb, penalty=2.0 * p, dirichlet=True)
+    TA = t_assemble(tb, penalty=2.0 * p, dirichlet=True, device=CPU)
     rx, rinfo = r_pcg(lambda v: rbm.matvec(RA, v), r_l2(rb, _f_ref),
                       precond=rsm.block_jacobi_preconditioner(RA),
                       tol=1e-10, maxiter=2000)
-    tx, tinfo = t_pcg(lambda v: tbm.matvec(TA, v), t_l2(tb, _f_port),
+    tx, tinfo = t_pcg(lambda v: tbm.matvec(TA, v), t_l2(tb, _f_port, device=CPU),
                       precond=tsm.block_jacobi_preconditioner(TA),
                       tol=1e-10, maxiter=2000)
     k = int(rinfo["iterations"])
@@ -145,7 +149,7 @@ def test_pcg_contract_without_preconditioner():
     """maxiter cut: history padded with the last value; rtol=False takes
     tol as an absolute target."""
     rb, tb = hanging_pair("2d")
-    TA = t_assemble(tb, penalty=4.0, dirichlet=True)
+    TA = t_assemble(tb, penalty=4.0, dirichlet=True, device=CPU)
     RA = r_assemble(rb, penalty=4.0, dirichlet=True)
     b = rbv.random(rb, 2)
     # tol 5.0 is absolute: the history falls to 4.76 at k = 7, far from
@@ -155,7 +159,7 @@ def test_pcg_contract_without_preconditioner():
                        maxiter=maxiter, rtol=rtol)
         tx, ti = t_pcg(lambda v: tbm.matvec(TA, v),
                        convert.bucket_dict({p: np.asarray(v)
-                                            for p, v in b.items()}),
+                                            for p, v in b.items()}, device=CPU),
                        tol=tol, maxiter=maxiter, rtol=rtol)
         assert ti["iterations"] == int(ri["iterations"]) == min(7, maxiter)
         np.testing.assert_allclose(ti["residuals"].numpy(),
@@ -196,13 +200,14 @@ def test_hp_adaptive_block_jacobi_pcg_slice():
         rop, b, precond=lambda r: rsm.apply_blockdiag(Dinv, r), tol=1e-8,
         maxiter=5000))(r_l2(rb, f_ref))
     # port
-    top = tmf.sipg_operator(tb, **kw)
-    M = tsm.block_jacobi_preconditioner(tmf.sipg_diagonal_blocks(tb, **kw))
-    b = t_l2(tb, f_port)
+    top = tmf.sipg_operator(tb, **kw, device=CPU)
+    M = tsm.block_jacobi_preconditioner(
+        tmf.sipg_diagonal_blocks(tb, **kw, device=CPU))
+    b = t_l2(tb, f_port, device=CPU)
     tx, tinfo = t_pcg(top, b, precond=M, tol=1e-8, maxiter=5000)
     assert tinfo["iterations"] == int(rinfo["iterations"])
     assert_close(rx, tx, tol=1e-8)
     # verified by the dedup SpMV (assembled blocks, another route)
-    dd, _ = tmf.dedup_spmv_from_plan(tb, dtype=torch.float64, **kw)
+    dd, _ = tmf.dedup_spmv_from_plan(tb, dtype=torch.float64, **kw, device=CPU)
     rel = float(tbv.norm(tbv.sub(b, dd(tx))) / tbv.norm(b))
     assert rel <= 1e-8, rel

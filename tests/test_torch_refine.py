@@ -22,6 +22,8 @@ from hpdg_tpu_torch.linalg import blockvector as bv
 from hpdg_tpu_torch.matrixfree.uniform import uniform_sipg_factorized
 from hpdg_tpu_torch.solvers import matrixfree_multigrid_solver, refinement_solve
 
+CPU = "cpu"  # the port defaults to the card; these tests run on the CPU
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
@@ -41,10 +43,10 @@ def solved():
     basis = TBasis(meshes[-1], np.full(meshes[-1].n_elements, 2))
     step, _ = matrixfree_multigrid_solver(basis, meshes=meshes,
                                           smoother="patch",
-                                          dtype=torch.float32, **KW)
+                                          dtype=torch.float32, **KW, device=CPU)
     f = lambda x: torch.sin(np.pi * x[..., 0]) * (1.0 + x[..., 1])  # noqa: E731
-    b64 = l2_functional(basis, f)
-    A64 = uniform_sipg_factorized(basis, **KW)
+    b64 = l2_functional(basis, f, device=CPU)
+    A64 = uniform_sipg_factorized(basis, **KW, device=CPU)
     residual = lambda x: bv.sub(b64, A64(x))  # noqa: E731
     x64, info = refinement_solve(step, residual, b64, chain_k=2, tol=1e-8,
                                  max_steps=8, host_residual=residual)

@@ -32,6 +32,8 @@ from hpdg_tpu_torch.basis.dgbasis import DGBasis as TBasis
 from hpdg_tpu_torch.linalg import blockmatrix as tbm
 from hpdg_tpu_torch.mesh.adaptive import refine_local as t_refine_local
 
+CPU = "cpu"  # the port defaults to the card; these tests run on the CPU
+
 TOL = 1e-12
 
 
@@ -122,13 +124,14 @@ def test_sipg_operator_matches_reference_and_assembly(case, dirichlet,
     x = random_x(rb)
     ry = rmf.sipg_operator(rb, diffusion=k_ref, dtype=jnp.float64, **kw)(
         {p: jnp.asarray(v) for p, v in x.items()})
-    op = tmf.sipg_operator(tb, diffusion=k_port, dtype=torch.float64, **kw)
-    ty = op(convert.bucket_dict(x))
+    op = tmf.sipg_operator(tb, diffusion=k_port, dtype=torch.float64, **kw,
+                           device=CPU)
+    ty = op(convert.bucket_dict(x, device=CPU))
     assert_close(ry, ty)
     # the port's own assembled matvec: an independent route
-    A = t_assemble(tb, diffusion=k_port, **kw)
+    A = t_assemble(tb, diffusion=k_port, **kw, device=CPU)
     assert_close({p: v.numpy() for p, v in ty.items()},
-                 tbm.matvec(A, convert.bucket_dict(x)))
+                 tbm.matvec(A, convert.bucket_dict(x, device=CPU)))
 
 
 @pytest.mark.parametrize("kind", [None, "scalar", "tensor"])
@@ -139,8 +142,8 @@ def test_sipg_operator_1d(kind):
     kw = dict(penalty=2.0, dirichlet=True, penalty_scaling="normal")
     ry = rmf.sipg_operator(rb, diffusion=k_ref, **kw)(
         {p: jnp.asarray(v) for p, v in x.items()})
-    assert_close(ry, tmf.sipg_operator(tb, diffusion=k_port, **kw)(
-        convert.bucket_dict(x)))
+    assert_close(ry, tmf.sipg_operator(tb, diffusion=k_port, **kw, device=CPU)(
+        convert.bucket_dict(x, device=CPU)))
 
 
 @pytest.mark.parametrize("kind", [None, "scalar", "tensor"])
@@ -149,11 +152,12 @@ def test_laplace_bulk_and_mass_operators(kind):
     k_ref, k_port = DIFFUSION[kind]
     x = random_x(rb, seed=11)
     rx = {p: jnp.asarray(v) for p, v in x.items()}
-    tx = convert.bucket_dict(x)
+    tx = convert.bucket_dict(x, device=CPU)
     assert_close(rmf.laplace_bulk_operator(rb, diffusion=k_ref)(rx),
-                 tmf.laplace_bulk_operator(tb, diffusion=k_port)(tx))
+                 tmf.laplace_bulk_operator(tb, diffusion=k_port, device=CPU)(tx))
     if kind is None:
-        assert_close(rmf.mass_operator(rb)(rx), tmf.mass_operator(tb)(tx))
+        assert_close(rmf.mass_operator(rb)(rx),
+                     tmf.mass_operator(tb, device=CPU)(tx))
 
 
 def test_naive_sipg_operator_matches_reference():
@@ -162,7 +166,8 @@ def test_naive_sipg_operator_matches_reference():
     kw = dict(penalty=2.5, dirichlet=True, dg_form="nipg", sigma1=0.2)
     assert_close(rmf.naive_sipg_operator(rb, **kw)(
         {p: jnp.asarray(v) for p, v in x.items()}),
-        tmf.naive_sipg_operator(tb, **kw)(convert.bucket_dict(x)))
+        tmf.naive_sipg_operator(tb, **kw, device=CPU)(
+            convert.bucket_dict(x, device=CPU)))
 
 
 def test_sipg_operator_f32():
@@ -173,8 +178,8 @@ def test_sipg_operator_f32():
     kw = dict(penalty=2.0, dirichlet=True, penalty_scaling="normal")
     ry = rmf.sipg_operator(rb, dtype=jnp.float64, **kw)(
         {p: jnp.asarray(v) for p, v in x.items()})
-    ty = tmf.sipg_operator(tb, dtype=torch.float32, **kw)(
-        convert.bucket_dict(x, dtype=torch.float32))
+    ty = tmf.sipg_operator(tb, dtype=torch.float32, **kw, device=CPU)(
+        convert.bucket_dict(x, dtype=torch.float32, device=CPU))
     assert all(v.dtype == torch.float32 for v in ty.values())
     assert_close(ry, ty, tol=1e-5)
 
@@ -189,8 +194,9 @@ def test_entry_step_matches_uniform_stencil():
     basis = TBasis(m, np.full(m.n_elements, p))
     x = {p: torch.as_tensor(np.random.default_rng(1887).standard_normal(
         (m.n_elements, (p + 1) ** 3)))}
-    y = tmf.sipg_operator(basis, penalty=2.0, dirichlet=True)(x)
-    want = uniform_sipg_operator(basis, penalty=2.0, dirichlet=True)(x)
+    y = tmf.sipg_operator(basis, penalty=2.0, dirichlet=True, device=CPU)(x)
+    want = uniform_sipg_operator(basis, penalty=2.0, dirichlet=True,
+                                 device=CPU)(x)
     assert_close({p: want[p].numpy()}, y)
 
 
@@ -201,5 +207,5 @@ def test_sipg_operator_matches_reference_assembly():
     RA = r_assemble(rb, penalty=2.0, dirichlet=True, dtype=jnp.float64)
     x = random_x(rb, seed=8)
     ry = rbm.matvec(RA, {p: jnp.asarray(v) for p, v in x.items()})
-    assert_close(ry, tmf.sipg_operator(tb, penalty=2.0, dirichlet=True)(
-        convert.bucket_dict(x)))
+    assert_close(ry, tmf.sipg_operator(tb, penalty=2.0, dirichlet=True, device=CPU)(
+        convert.bucket_dict(x, device=CPU)))

@@ -15,6 +15,8 @@ from hpdg_tpu_torch import mesh as tmesh
 from hpdg_tpu_torch.basis.dgbasis import DGBasis as TBasis
 from hpdg_tpu_torch.transfer import h_transfer as t_h, p_transfer as t_p
 
+CPU = "cpu"  # the port defaults to the card; these tests run on the CPU
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
@@ -35,9 +37,9 @@ def _check(RT, TT, seed):
     xc = _rand(RT.coarse, seed)
     rf = _rand(RT.fine, seed + 1)
     pr = RT.prolong({p: jnp.asarray(v) for p, v in xc.items()})
-    pt = TT.prolong(convert.bucket_dict(xc), dtype=torch.float64)
+    pt = TT.prolong(convert.bucket_dict(xc, device=CPU), dtype=torch.float64)
     rr = RT.restrict({p: jnp.asarray(v) for p, v in rf.items()})
-    rt = TT.restrict(convert.bucket_dict(rf), dtype=torch.float64)
+    rt = TT.restrict(convert.bucket_dict(rf, device=CPU), dtype=torch.float64)
     for ref, got in ((pr, pt), (rr, rt)):
         assert ref.keys() == got.keys()
         for p in ref:
