@@ -39,7 +39,24 @@ Phases (any failure ends the run with a nonzero exit code):
 7. an hp-adaptive solve: 8^3 with 30% refined, degrees {2, 3, 4},
    block-Jacobi PCG in f64 on the card (sum-factorized matvec, diagonal
    blocks from ``sipg_diagonal_blocks``, tol 1e-8), its relative
-   residual recomputed by the f64 dedup SpMV and asserted <= 1e-8.
+   residual recomputed by the f64 dedup SpMV and asserted <= 1e-8;
+8. BASELINE config 4 as ``bench.py:698-772`` runs it: 3D elasticity on
+   24^3 at p=2 (1,119,744 dofs, mu = lam = 1, penalty 4, Dirichlet),
+   assembled on the card in f64; the assembled hp-multigrid on the f32
+   copy (Galerkin levels p2 24^3 -> p1 24^3 -> p1 12^3, class-patch
+   smoothing on both smoothed levels, colored block GS on the 41,472-dof
+   coarse level) inside the f64 refinement (chain_k 10, at most 10
+   steps); verified <= 1e-8 by a host numpy f64 residual; set-up and
+   solve seconds, ms per V-cycle (CUDA events), launches per V-cycle
+   and the top ops by device time (profiler over 2 cycles), peak memory;
+9. the scalar assembled hp-MG of ``tests/test_parity_cpp.py:84-125`` in
+   f64 on the card (12^3 p=4, re-assembled levels, lexicographic block
+   GS 3+3, dense coarse solve): each of its 9 cycles within
+   1e-10 |c| + 5e-14 of the C++ history ``cpp/golden_mg3d_n12_p4.json``,
+   and the seconds per cycle;
+10. the 12^3 p=4 verified solve of phase 4 with the matrix-free
+   solver's default smoother, block-Jacobi Chebyshev of degree 3, K1 as
+   every level's operator; the contraction per cycle beside phase 4's.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -232,8 +249,11 @@ def time_level(label, op, twin, u, yk, abs_err, dev) -> dict:
     return t
 
 
-def solve(n: int, dev, p: int = 4, chain_k: int = 2):
-    """Phase 4: the verified solve at n^3 elements, degree p."""
+def solve(n: int, dev, p: int = 4, chain_k: int = 2, smoother: str = "patch",
+          max_steps: int = 8):
+    """Phases 4 and 10: the verified solve at n^3 elements, degree p,
+    with vertex-patch (phase 4) or block-Jacobi Chebyshev (phase 10)
+    smoothing."""
     from hpdg_tpu_torch import mesh as hm
     from hpdg_tpu_torch.assemble import l2_functional
     from hpdg_tpu_torch.basis.dgbasis import DGBasis
@@ -256,7 +276,7 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2):
     basis = DGBasis(mesh, np.full(mesh.n_elements, p, dtype=np.int32))
     kw = dict(penalty=PENALTY, dirichlet=True, penalty_scaling=SCALING)
     step, info = matrixfree_multigrid_solver(
-        basis, meshes=meshes, smoother="patch", dtype=torch.float32,
+        basis, meshes=meshes, smoother=smoother, dtype=torch.float32,
         device=dev, **kw)
     f = lambda x: (2 * np.pi**2 * torch.sin(np.pi * x[..., 0])  # noqa: E731
                    * torch.sin(np.pi * x[..., 1]) * torch.sin(np.pi * x[..., 2]))
@@ -277,13 +297,16 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2):
     for op in ops:
         op.launches = 0
     x64, res = refinement_solve(step, residual, b64, chain_k=chain_k,
-                                tol=1e-8, max_steps=8,
+                                tol=1e-8, max_steps=max_steps,
                                 host_residual=host_residual)
     torch.cuda.synchronize()
     launches = sum(op.launches for op in ops)
     # per V-cycle and non-coarse level: one pre and one post sweep with
-    # one apply per color, plus the residual before restriction
-    per_cycle = sum(2 * len(sm.color_groups) + 1 for sm in info["smoothers"])
+    # one apply per patch color (Chebyshev: one per degree), plus the
+    # residual before restriction
+    cheby_degree = 3  # the solver's default
+    per_cycle = sum(2 * (cheby_degree if sm is None else len(sm.color_groups))
+                    + 1 for sm in info["smoothers"])
     expected = res["cycles"] * per_cycle
     peak = torch.cuda.max_memory_allocated(dev)
     if any(op.launches == 0 for op in ops):
@@ -315,33 +338,40 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2):
     x0 = bv.zeros_like(b32)
     t_cycle = float(np.median(event_times(lambda: step(x0, b32), 5)))
 
+    tag = f"solve n={n}^3 {smoother}"
     levels = " ".join(f"{b.mesh.n_elements}e/p{b.bucket_degrees[0]}"
                       for b in info["bases"])
-    print(f"solve n={n}^3 p={p} dofs={basis.ndof} levels=[{levels}] "
+    print(f"{tag} p={p} dofs={basis.ndof} levels=[{levels}] "
           f"setup_s={t_setup:.2f}", flush=True)
-    print(f"solve n={n}^3 steps={res['steps']} cycles={res['cycles']} "
+    print(f"{tag} steps={res['steps']} cycles={res['cycles']} "
           f"history={['%.3e' % h for h in res['history']]} "
           f"verified_rel_residual={res['rel_residual']:.3e} "
           f"verified={res['verified']}", flush=True)
-    print(f"solve n={n}^3 cycle_residuals="
+    print(f"{tag} cycle_residuals="
           f"{['%.3e' % r for r in rdiag]} (f32 chain from zero)", flush=True)
-    print(f"solve n={n}^3 rate_per_cycle={rate:.4f} ms_per_vcycle="
+    print(f"{tag} rate_per_cycle={rate:.4f} ms_per_vcycle="
           f"{t_cycle:.3f} solve_s={res['seconds']:.3f} "
           f"loop_s={res['seconds_loop']:.3f} peak_mem_bytes={peak} "
           f"K1_launches={launches} expected={expected} "
           f"({per_cycle} per V-cycle)", flush=True)
     prof = profile_cycles(step, x0, b32) if n == 32 else None
     if prof is not None:
-        print(f"solve n={n}^3 profile (3 V-cycles): K1 {prof['k1_ms']:.3f} "
+        print(f"{tag} profile (3 V-cycles): K1 {prof['k1_ms']:.3f} "
               f"device ms/cycle ({prof['k1_launches']:.0f} launches), all "
               f"kernels {prof['device_ms']:.3f} device ms/cycle "
               f"({prof['launches']:.0f} launches), wall "
               f"{prof['wall_ms']:.3f} ms/cycle, busy share "
               f"{prof['device_ms'] / prof['wall_ms']:.3f}", flush=True)
     elif n == 32:
-        print(f"solve n={n}^3 profile: not measured (no device events)",
+        print(f"{tag} profile: not measured (no device events)",
               flush=True)
-    return dict(ndof=basis.ndof, launches=launches)
+    # contraction per V-cycle of the refinement: the anchored f64
+    # residual over all cycles (each chain starts from the normalized
+    # residual, so the f32 floor of the chain from zero does not enter)
+    anchored = (res["history"][-1] / res["history"][0]) ** (
+        1.0 / max(1, res["cycles"]))
+    return dict(ndof=basis.ndof, launches=launches, anchored=anchored,
+                first=rdiag[1], steps=res["steps"], cycles=res["cycles"])
 
 
 def profile_cycles(step, x0, b32, cycles: int = 3):
@@ -399,14 +429,14 @@ def profile_apply(fn, reps: int = 5):
              for a in ops[:6]])
 
 
-def print_profile(tag: str, prof):
+def print_profile(tag: str, prof, unit: str = "apply"):
     if prof is None:
         print(f"{tag} profile: not measured (no device events)", flush=True)
         return
-    print(f"{tag} profile: {prof['launches']:.0f} kernel launches/apply, "
-          f"device {prof['device_ms']:.4f} ms/apply", flush=True)
+    print(f"{tag} profile: {prof['launches']:.0f} kernel launches/{unit}, "
+          f"device {prof['device_ms']:.4f} ms/{unit}", flush=True)
     for name, ms, count in prof["top"]:
-        print(f"{tag}   {name:40s} {ms:.4f} ms/apply ({count:.0f} calls)",
+        print(f"{tag}   {name:40s} {ms:.4f} ms/{unit} ({count:.0f} calls)",
               flush=True)
 
 
@@ -569,6 +599,197 @@ def hp_solve(dev, cells=(8, 8, 8)):
                              f"rel {rel:.3e}")
 
 
+def host_matvec(pattern, vals: dict, x: dict) -> dict:
+    """``A x`` in host numpy f64, a route independent of the port's
+    ``bmm`` + ``index_add_`` SpMV."""
+    out = {}
+    for (pr, pc), (rows, cols) in pattern.entries.items():
+        contrib = np.matmul(vals[(pr, pc)], x[pc][cols][:, :, None])[:, :, 0]
+        y = np.zeros((pattern.row_sizes[pr], contrib.shape[1]))
+        np.add.at(y, rows, contrib)
+        out[pr] = out[pr] + y if pr in out else y
+    return out
+
+
+def elasticity_solve(dev, n_el: int = 24):
+    """Phase 8: BASELINE config 4 as ``bench.py:698-772`` runs it: 3D
+    elasticity on n_el^3 at p=2, assembled on the card in f64, the
+    assembled hp-multigrid (Galerkin coarse levels, class-patch
+    smoothing, GS coarse solve) in f32 inside the f64 refinement,
+    verified by a host numpy f64 residual."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.assemble import (assemble_elasticity, build_plan,
+                                         l2_functional_vec)
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.solvers import patches as pat
+    from hpdg_tpu_torch.solvers import smoothers as sm
+    from hpdg_tpu_torch.solvers.multigrid import (multigrid_solver,
+                                                  setup_hierarchy)
+    from hpdg_tpu_torch.solvers.refine import refinement_solve
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    mc = hm.structured((n_el // 2,) * 3)
+    mf = hm.refine(mc)
+    basis = DGBasis(mf, np.full(mf.n_elements, 2, dtype=np.int32))
+    plan = build_plan(basis)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sm.greedy_coloring(mc)
+    t_color = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pat.build_vertex_patches(mf)
+    t_patches = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    A64 = assemble_elasticity(basis, mu=1.0, lam=1.0, penalty=4.0,
+                              dirichlet=True, plan=plan, device=dev)
+    force = lambda x: torch.stack(  # noqa: E731
+        [3 * np.pi ** 2 * torch.sin(np.pi * x[..., 0])
+         * torch.sin(np.pi * x[..., 1]) * torch.sin(np.pi * x[..., 2]),
+         torch.zeros_like(x[..., 0]), torch.zeros_like(x[..., 0])], dim=-1)
+    b64 = l2_functional_vec(basis, force, device=dev)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    ndof = 3 * basis.ndof
+    nblocks = sum(v.shape[0] for v in A64.values.values())
+    gb64 = sum(v.numel() * v.element_size() for v in A64.values.values()) / 1e9
+    A32 = bm.BlockSparseMatrix(A64.pattern, A64.dim,
+                               {k: v.float() for k, v in A64.values.items()},
+                               A64.block_shape)
+    print(f"elasticity {n_el}^3 p=2: dofs={ndof} blocks={nblocks} "
+          f"A64_GB={gb64:.3f} host_setup_s={t_host:.2f} "
+          f"(coloring {n_el // 2}^3 {t_color:.3f} s, vertex patches "
+          f"{n_el}^3 {t_patches:.3f} s) card_assembly_s={t_asm:.2f}",
+          flush=True)
+    if ndof != 81 * n_el ** 3:  # 1,119,744 at 24^3
+        raise AssertionError(f"elasticity: {ndof} dofs")
+
+    # the Galerkin hierarchy alone, then the whole solver set-up (the
+    # hierarchy again, the class patch inverses and the coarse solve)
+    t0 = time.perf_counter()
+    setup_hierarchy(basis, A32, meshes=[mc, mf], dtype=torch.float32)
+    torch.cuda.synchronize()
+    t_hier = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, data = multigrid_solver(basis, A32, meshes=[mc, mf],
+                                  smoother="patch", dtype=torch.float32)
+    torch.cuda.synchronize()
+    t_mg = time.perf_counter() - t0
+    levels = " ".join(f"{b.mesh.n_elements}e/p{b.bucket_degrees[0]}"
+                      for b in data.bases)
+    coarse_dofs = 3 * data.bases[0].ndof
+    print(f"elasticity hierarchy=[{levels}] smoothers={data.smoothers} "
+          f"coarse={data.coarse} coarse_dofs={coarse_dofs} "
+          f"galerkin_hierarchy_s={t_hier:.2f} solver_setup_s={t_mg:.2f} "
+          f"(patch classes and coarse: {t_mg - t_hier:.2f} s)", flush=True)
+    if not (data.coarse == "gs" and coarse_dofs == 3 * (n_el // 2) ** 3 * 8
+            and len(data.smoothers) == 2
+            and all(s.startswith("class-patch") for s in data.smoothers)):
+        raise AssertionError("elasticity: not the class-patch hierarchy "
+                             "with a GS coarse level (41,472 dofs at 24^3)")
+
+    keys = sorted(b64)
+    vals_host = {k: v.cpu().numpy() for k, v in A64.values.items()}
+    b_host = {k: b64[k].cpu().numpy() for k in keys}
+
+    def host_residual(x):
+        Ax = host_matvec(A64.pattern, vals_host,
+                         {k: v.numpy() for k, v in x.items()})
+        return {k: torch.from_numpy(b_host[k] - Ax[k]) for k in keys}
+
+    x64, res = refinement_solve(
+        step, lambda x: bv.sub(b64, bm.matvec(A64, x)), b64, chain_k=10,
+        tol=1e-8, max_steps=10, host_residual=host_residual)
+    finite = all(bool(torch.isfinite(v).all()) for v in x64.values())
+    shapes = all(tuple(x64[k].shape) == (basis.bucket_size(k),
+                                         3 * basis.n_local(k)) for k in keys)
+    b32 = {k: v.float() for k, v in b64.items()}
+    x0 = bv.zeros_like(b32)
+    t_cycle = float(np.median(event_times(lambda: step(x0, b32), 3)))
+    prof = profile_apply(lambda: step(x0, b32), reps=2)
+    peak = torch.cuda.max_memory_allocated(dev)
+    anchored = (res["history"][-1] / res["history"][0]) ** (
+        1.0 / max(1, res["cycles"]))
+    print(f"elasticity solve: steps={res['steps']} cycles={res['cycles']} "
+          f"(chain_k=10) history={['%.3e' % h for h in res['history']]} "
+          f"anchored_rate_per_cycle={anchored:.4f} "
+          f"host_verified_rel_residual={res['rel_residual']:.3e} "
+          f"solve_s={res['seconds']:.3f} loop_s={res['seconds_loop']:.3f} "
+          f"ms_per_vcycle={t_cycle:.3f} peak_mem_bytes={peak}", flush=True)
+    print_profile("elasticity V-cycle", prof, unit="cycle")
+    if not (finite and shapes):
+        raise AssertionError("elasticity: wrong shape or non-finite values")
+    if not (res["verified"] and res["rel_residual"] <= 1e-8):
+        raise AssertionError(f"elasticity not verified: rel "
+                             f"{res['rel_residual']:.3e}")
+
+
+def lex_parity(dev):
+    """Phase 9: the scalar assembled hp-MG (re-assembled levels,
+    lexicographic block GS 3+3, dense coarse solve) in f64 on the card at
+    12^3 p=4, cycle by cycle against the committed history of the C++
+    baseline (``cpp/baseline_mg3d.cc``), as
+    ``tests/test_parity_cpp.py:84-125`` builds it."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.assemble import assemble_laplace, l2_functional
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.solvers.multigrid import multigrid_solver
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "cpp", "golden_mg3d_n12_p4.json")) as fh:
+        golden = json.load(fh)
+    n, p = golden["n"], golden["p"]
+    # the baseline's h-levels: halve while even and above 3 cells
+    base, nlev = n, 0
+    while base % 2 == 0 and base > 3:
+        base //= 2
+        nlev += 1
+    t0 = time.perf_counter()
+    meshes = hm.hierarchy(hm.structured((base,) * 3), nlev)
+    basis = DGBasis(meshes[-1], np.full(meshes[-1].n_elements, p,
+                                        dtype=np.int32))
+    kw = dict(penalty=2.0, dirichlet=True, penalty_scaling="normal")
+    A = assemble_laplace(basis, **kw, device=dev)
+    fac = lambda bas: assemble_laplace(bas, **kw, device=dev)  # noqa: E731
+    f = lambda x: (2 * np.pi**2 * torch.sin(np.pi * x[..., 0])  # noqa: E731
+                   * torch.sin(np.pi * x[..., 1]) * torch.sin(np.pi * x[..., 2]))
+    b = l2_functional(basis, f, device=dev)
+    step, data = multigrid_solver(basis, A, operator_factory=fac,
+                                  meshes=meshes, smoother="lex",
+                                  coarse="dense")
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    nb = float(bv.norm(b))
+    x = bv.zeros_like(b)
+    hist, secs = [1.0], []
+    for _ in range(len(golden["history"]) - 1):
+        t0 = time.perf_counter()
+        x = step(x, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        hist.append(float(bv.norm(bv.sub(b, bm.matvec(A, x)))) / nb)
+    dev_max = max(abs(a - c) / (1e-10 * abs(c) + 5e-14)
+                  for a, c in zip(hist, golden["history"]))
+    rows = sum(bas.mesh.n_elements for bas in data.bases[1:])
+    print(f"lex parity {n}^3 p={p} dofs={basis.ndof} levels="
+          f"{[bas.mesh.n_elements for bas in data.bases]} "
+          f"coarse={data.coarse} setup_s={t_setup:.2f} "
+          f"row_solves_per_cycle={6 * rows}", flush=True)
+    print(f"lex parity history={['%.6e' % h for h in hist]}", flush=True)
+    print(f"lex parity golden ={['%.6e' % h for h in golden['history']]}",
+          flush=True)
+    print(f"lex parity s_per_cycle={['%.3f' % s for s in secs]} "
+          f"worst |a-c|/(1e-10|c|+5e-14)={dev_max:.3e}", flush=True)
+    if not dev_max <= 1.0:
+        raise AssertionError("lex parity: a cycle deviates from the C++ "
+                             "golden history")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -608,7 +829,7 @@ def main() -> int:
     timing = check_kernel(dev)
 
     # ---- phase 4: the solves ----
-    solve(12, dev)
+    patch12 = solve(12, dev)
     main_run = solve(32, dev)
 
     # ---- phases 5-7: the hp-adaptive general-mesh path ----
@@ -616,8 +837,21 @@ def main() -> int:
     adaptive_apply(dev)
     hp_solve(dev)
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    # ---- phases 8-9: the assembled hp-multigrid ----
+    elasticity_solve(dev)
+    lex_parity(dev)
+
+    # ---- phase 10: the matrix-free solve smoothed by Chebyshev ----
+    cheb = solve(12, dev, smoother="cheb", chain_k=4, max_steps=10)
+    print(f"contraction per V-cycle at 12^3 p=4 (anchored history): patch "
+          f"{patch12['anchored']:.4f} ({patch12['steps']} steps, "
+          f"{patch12['cycles']} cycles), cheb {cheb['anchored']:.4f} "
+          f"({cheb['steps']} steps, {cheb['cycles']} cycles); first cycle "
+          f"from zero: patch {patch12['first']:.3e}, cheb "
+          f"{cheb['first']:.3e}", flush=True)
+
+    if "jax" in sys.modules or "hpdg_tpu" in sys.modules:
+        raise AssertionError("the port imported jax or hpdg_tpu")
     t4 = timing[((32, 32, 32), 4)]
     summary = {"kernels": [{
         "name": "uniform_stencil",

@@ -32,12 +32,14 @@ def to_numpy(x: dict) -> dict:
 
 def block_sparse_matrix(row_sizes: dict, col_sizes: dict, entries: dict,
                         values: dict, dim: int, dtype=None,
-                        device=None) -> BlockSparseMatrix:
+                        device=None, block_shape=(1, 1)) -> BlockSparseMatrix:
     """A reference ``BlockSparseMatrix`` given as its pattern
-    (``row_sizes``, ``col_sizes``, ``entries[(pr, pc)] = (rows, cols)``)
-    and ``values[(pr, pc)]`` as numpy -> the port's matrix."""
+    (``row_sizes``, ``col_sizes``, ``entries[(pr, pc)] = (rows, cols)``),
+    ``values[(pr, pc)]`` as numpy and its ``block_shape`` -> the port's
+    matrix."""
     pattern = BlockPattern(row_sizes, col_sizes,
                            {k: (np.asarray(r), np.asarray(c))
                             for k, (r, c) in entries.items()})
     vals = bucket_dict(values, dtype=dtype, device=device)
-    return BlockSparseMatrix(pattern, dim, {k: vals[k] for k in values})
+    return BlockSparseMatrix(pattern, dim, {k: vals[k] for k in values},
+                             tuple(block_shape))

@@ -1,8 +1,9 @@
-"""Bucketed block vectors: ``{degree: Tensor[n_elements_of_degree, (p+1)^dim]}``.
+"""Bucketed block vectors: ``{degree: Tensor[n_elements_of_degree, ncomp (p+1)^dim]}``.
 
 Port of ``hpdg_tpu.linalg.blockvector``.  A block vector is a plain dict
-of tensors; conversion to and from the flat (element-ordered) layout
-goes through the host-side metadata of
+of tensors; ``ncomp > 1`` makes it vector-valued, component-major per
+element.  Conversion to and from the flat (element-ordered) layout goes
+through the host-side metadata of
 :class:`~hpdg_tpu_torch.basis.dgbasis.DGBasis`.
 """
 
@@ -15,35 +16,40 @@ from hpdg_tpu_torch import device as dev
 from hpdg_tpu_torch.basis.dgbasis import DGBasis
 
 
-def zeros(basis: DGBasis, dtype=torch.float64, device=None) -> dict:
+def zeros(basis: DGBasis, dtype=torch.float64, device=None,
+          ncomp: int = 1) -> dict:
     device = dev.resolve(device)
-    return {p: torch.zeros((basis.bucket_size(p), basis.n_local(p)),
+    return {p: torch.zeros((basis.bucket_size(p), ncomp * basis.n_local(p)),
                            dtype=dtype, device=device)
             for p in basis.bucket_degrees}
 
 
-def _flat_index(basis: DGBasis, p: int) -> np.ndarray:
+def flat_index(basis: DGBasis, p: int, ncomp: int = 1) -> np.ndarray:
+    """Flat dof indices ``[n_p, ncomp (p+1)^dim]`` of bucket ``p``."""
     elems = basis.bucket_elems[p]
-    return (basis.offsets[elems][:, None]
-            + np.arange(basis.n_local(p))[None, :])
+    return (ncomp * basis.offsets[elems][:, None]
+            + np.arange(ncomp * basis.n_local(p))[None, :])
 
 
-def from_flat(basis: DGBasis, flat, dtype=None, device=None) -> dict:
+def from_flat(basis: DGBasis, flat, dtype=None, device=None,
+              ncomp: int = 1) -> dict:
     flat = np.asarray(flat)
     device = dev.resolve(device)
     out = {}
     for p in basis.bucket_degrees:
-        t = torch.from_numpy(np.ascontiguousarray(flat[_flat_index(basis, p)]))
+        t = torch.from_numpy(np.ascontiguousarray(
+            flat[flat_index(basis, p, ncomp)]))
         out[p] = t.to(device=device, dtype=dtype or t.dtype)
     return out
 
 
-def to_flat(basis: DGBasis, x: dict) -> np.ndarray:
+def to_flat(basis: DGBasis, x: dict, ncomp: int = 1) -> np.ndarray:
     """Host numpy flat vector in element order."""
     first = x[basis.bucket_degrees[0]]
-    flat = np.zeros(basis.ndof, dtype=first.detach().cpu().numpy().dtype)
+    flat = np.zeros(ncomp * basis.ndof,
+                    dtype=first.detach().cpu().numpy().dtype)
     for p in basis.bucket_degrees:
-        flat[_flat_index(basis, p)] = x[p].detach().cpu().numpy()
+        flat[flat_index(basis, p, ncomp)] = x[p].detach().cpu().numpy()
     return flat
 
 
@@ -79,12 +85,12 @@ def zeros_like(x: dict) -> dict:
 
 
 def random(basis: DGBasis, seed: int = 1887, dtype=torch.float64,
-           device=None) -> dict:
+           device=None, ncomp: int = 1) -> dict:
     """Deterministic pseudo-random vector: numpy's ``default_rng(seed)``
     draws the same numbers as ``hpdg_tpu.linalg.blockvector.random``
     (fixed seed 1887, the reference's test fixture)."""
     device = dev.resolve(device)
     rng = np.random.default_rng(seed)
     return {p: torch.as_tensor(
-        rng.standard_normal((basis.bucket_size(p), basis.n_local(p))),
+        rng.standard_normal((basis.bucket_size(p), ncomp * basis.n_local(p))),
         dtype=dtype, device=device) for p in basis.bucket_degrees}

@@ -1,8 +1,8 @@
-"""Solvers: Krylov (CG), block Jacobi, matrix-free hp-multigrid, patch
-smoothing, refinement."""
+"""Solvers: Krylov (CG) and the loop solver, block smoothers, assembled
+and matrix-free hp-multigrid, patch smoothing, refinement."""
 
-from hpdg_tpu_torch.solvers.cg import pcg  # noqa: F401
+from hpdg_tpu_torch.solvers.cg import loop_solve, pcg  # noqa: F401
 from hpdg_tpu_torch.solvers.multigrid import (  # noqa: F401
-    matrixfree_multigrid_solver)
+    matrixfree_multigrid_solver, multigrid_solver, setup_hierarchy)
 from hpdg_tpu_torch.solvers.refine import refinement_solve  # noqa: F401
 from hpdg_tpu_torch.solvers import smoothers  # noqa: F401

@@ -5,8 +5,8 @@ Port of ``hpdg_tpu.solvers.cg.pcg``.  The reference runs a
 per iteration (the residual norm for the stopping test), and the same
 contract: the history has length ``maxiter + 1``, padded with the final
 value, and the loop stops at the first ``k`` with
-``residuals[k] <= target``.  ``loop_solve`` waits for ROADMAP queue 1,
-item 12, with the step functions it drives.
+``residuals[k] <= target``.  ``loop_solve`` drives an iteration step
+(a multigrid cycle) with the reference's energy-norm stopping rule.
 """
 
 from __future__ import annotations
@@ -50,3 +50,29 @@ def pcg(matvec_fn, b: dict, x0: dict | None = None, precond=None,
     hist += [hist[k]] * (maxiter - k)
     return x, {"iterations": k,
                "residuals": torch.tensor(hist, dtype=torch.float64)}
+
+
+def loop_solve(step_fn, x0: dict, b: dict, matvec_fn=None, tol: float = 1e-8,
+               maxiter: int = 100, norm_fn=None):
+    """dune-solvers ``LoopSolver`` analog: iterate ``x_{k+1} =
+    step_fn(x_k, b)`` until the norm of the correction drops below
+    ``tol``.  ``norm_fn(correction)`` defaults to the energy norm
+    ``sqrt(|c^T A c|)`` if ``matvec_fn`` is given, else the 2-norm.  A
+    host loop with one sync per step (the norm).  Returns ``(x, info)``
+    with ``info = {"iterations", "history"}``."""
+    if norm_fn is None:
+        if matvec_fn is not None:
+            norm_fn = lambda c: torch.sqrt(torch.abs(  # noqa: E731
+                bv.dot(c, matvec_fn(c))))
+        else:
+            norm_fn = bv.norm
+    x = x0
+    history = []
+    for _ in range(maxiter):
+        xn = step_fn(x, b)
+        err = float(norm_fn(bv.sub(xn, x)))  # the step's one sync
+        history.append(err)
+        x = xn
+        if err < tol:
+            break
+    return x, {"iterations": len(history), "history": history}

@@ -80,9 +80,11 @@ def test_vcycle_on_card_matches_cpu_twin_path(dev):
     meshes = tmesh.hierarchy(tmesh.structured((3, 3, 3)), 1)
     tb = DGBasis(meshes[-1], np.full(meshes[-1].n_elements, 2))
     gstep, info = matrixfree_multigrid_solver(tb, meshes=meshes,
+                                              smoother="patch",
                                               dtype=torch.float32,
                                               device=dev, **KW)
     cstep, _ = matrixfree_multigrid_solver(tb, meshes=meshes,
+                                           smoother="patch",
                                            dtype=torch.float32, **KW, device=CPU)
     rng = np.random.default_rng(6)
     x = {2: rng.standard_normal((216, 27))}
@@ -100,6 +102,7 @@ def test_refinement_solve_on_card_verifies(dev):
     meshes = tmesh.hierarchy(tmesh.structured((3, 3, 3)), 1)
     tb = DGBasis(meshes[-1], np.full(meshes[-1].n_elements, 2))
     step, _ = matrixfree_multigrid_solver(tb, meshes=meshes,
+                                          smoother="patch",
                                           dtype=torch.float32,
                                           device=dev, **KW)
     f = lambda x: torch.sin(np.pi * x[..., 0]) * (1.0 + x[..., 1])  # noqa: E731

@@ -129,9 +129,12 @@ def test_contraction_rate_matches_reference(hierarchy):
 
 
 def test_solver_refuses_unported_branches():
+    """The matrix-free solver knows "cheb" and "patch" only; a patch
+    block above 1024 dofs (p=5 in 3D) smooths by Chebyshev, as in the
+    reference."""
     tb = TBasis(tmesh.structured((2, 2, 2)), np.full(8, 2))
-    with pytest.raises(NotImplementedError, match="Chebyshev"):
-        t_mg(tb, smoother="cheb", **KW, device=CPU)
+    with pytest.raises(ValueError):
+        t_mg(tb, smoother="line", **KW, device=CPU)
     tb5 = TBasis(tmesh.structured((2, 2, 2)), np.full(8, 5))
-    with pytest.raises(NotImplementedError, match="1024"):
-        t_mg(tb5, **KW, device=CPU)
+    _, info = t_mg(tb5, smoother="patch", **KW, device=CPU)
+    assert info["smoothers"][-1] is None  # Chebyshev on the p=5 level
