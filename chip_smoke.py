@@ -49,6 +49,10 @@ Phases (any failure ends the run with a nonzero exit code):
    steps); verified <= 1e-8 by a host numpy f64 residual; set-up and
    solve seconds, ms per V-cycle (CUDA events), launches per V-cycle
    and the top ops by device time (profiler over 2 cycles), peak memory;
+   and the matrix-free elasticity apply on a seeded vector, f64 against
+   the assembled A64 (1e-11 of max|y|) and f32 against f64 (1e-5), its
+   ms per apply (CUDA events, median of 10) and launches per apply
+   (profiler) beside the assembled SpMV's;
 9. the scalar assembled hp-MG of ``tests/test_parity_cpp.py:84-125`` in
    f64 on the card (12^3 p=4, re-assembled levels, lexicographic block
    GS 3+3, dense coarse solve): each of its 9 cycles within
@@ -56,7 +60,16 @@ Phases (any failure ends the run with a nonzero exit code):
    and the seconds per cycle;
 10. the 12^3 p=4 verified solve of phase 4 with the matrix-free
    solver's default smoother, block-Jacobi Chebyshev of degree 3, K1 as
-   every level's operator; the contraction per cycle beside phase 4's.
+   every level's operator; the contraction per cycle beside phase 4's;
+11. BASELINE config 5 as ``bench.py:775-817`` builds it: a membrane
+   pushed into a lower obstacle on 128^2 at p=3 (262,144 dofs), f64
+   SIPG matrix assembled on the card, ``solve_obstacle_verified`` three
+   times (f32 TNNMG, then the primal-dual active-set loop of f64
+   refinements around f32 parametric V-cycles); every run verified by
+   host numpy f64: free-dof residual <= 1e-8, feasible, complementarity
+   <= 1e-8, a contact zone; per run the seconds of both phases, the
+   iterations and truncated dofs; launches, device ms and busy share of
+   one TNNMG iteration and one parametric cycle (profiler), peak memory.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -403,18 +416,20 @@ def profile_cycles(step, x0, b32, cycles: int = 3):
 
 
 def profile_apply(fn, reps: int = 5):
-    """Kernel launches and device ms per call of ``fn()``, and the ops
-    that take the most device time (torch.profiler); ``None`` where the
-    profiler saw no device activity."""
+    """Kernel launches, device ms and wall ms per call of ``fn()``, and
+    the ops that take the most device time (torch.profiler); ``None``
+    where the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     avgs = prof.key_averages()
     kernels = [a for a in avgs if a.device_type == DeviceType.CUDA]
     if not kernels:
@@ -425,6 +440,7 @@ def profile_apply(fn, reps: int = 5):
     return dict(
         launches=sum(a.count for a in kernels) / reps,
         device_ms=sum(a.device_time_total for a in kernels) / 1e3 / reps,
+        wall_ms=1e3 * wall / reps,
         top=[(a.key, a.self_device_time_total / 1e3 / reps, a.count / reps)
              for a in ops[:6]])
 
@@ -666,6 +682,7 @@ def elasticity_solve(dev, n_el: int = 24):
           flush=True)
     if ndof != 81 * n_el ** 3:  # 1,119,744 at 24^3
         raise AssertionError(f"elasticity: {ndof} dofs")
+    mf_elasticity_apply(basis, plan, A64, A32, dev)
 
     # the Galerkin hierarchy alone, then the whole solver set-up (the
     # hierarchy again, the class patch inverses and the coarse solve)
@@ -725,6 +742,44 @@ def elasticity_solve(dev, n_el: int = 24):
     if not (res["verified"] and res["rel_residual"] <= 1e-8):
         raise AssertionError(f"elasticity not verified: rel "
                              f"{res['rel_residual']:.3e}")
+
+
+def mf_elasticity_apply(basis, plan, A64, A32, dev):
+    """Phase 8, continued: the matrix-free elasticity apply of config 4
+    against the assembled matrix on the card (f64 within 1e-11 of
+    max|y|, f32 within 1e-5 of the f64 apply), its ms and launches per
+    apply beside the assembled SpMV's."""
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.matrixfree.elasticity import elasticity_operator
+
+    kw = dict(mu=1.0, lam=1.0, penalty=4.0, dirichlet=True, plan=plan,
+              device=dev)
+    t0 = time.perf_counter()
+    op64 = elasticity_operator(basis, dtype=torch.float64, **kw)
+    op32 = elasticity_operator(basis, dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(1887)
+    x64 = {p: torch.randn((A64.pattern.row_sizes[p], A64.br(p)),
+                          generator=gen, dtype=torch.float64, device=dev)
+           for p in basis.bucket_degrees}
+    x32 = {p: v.float() for p, v in x64.items()}
+    y64 = op64(x64)
+    check_rel("elasticity mf-f64 vs assembled A64", bm.matvec(A64, x64),
+              y64, 1e-11)
+    check_rel("elasticity mf-f32 vs mf-f64", y64, op32(x32), TOL_KERNEL)
+    times = {}
+    for tag, fn in (("mf-f64", lambda: op64(x64)),
+                    ("mf-f32", lambda: op32(x32)),
+                    ("spmv-f64", lambda: bm.matvec(A64, x64)),
+                    ("spmv-f32", lambda: bm.matvec(A32, x32))):
+        times[tag] = float(np.median(event_times(fn, 10)))
+    print(f"elasticity apply {basis.mesh.n_elements} elements p=2: build_s="
+          f"{t_build:.3f} median_ms_per_apply "
+          + " ".join(f"{k}={v:.4f}" for k, v in times.items()), flush=True)
+    print_profile("elasticity mf-f32 apply", profile_apply(lambda: op32(x32)))
+    print_profile("elasticity spmv-f32 apply",
+                  profile_apply(lambda: bm.matvec(A32, x32)))
 
 
 def lex_parity(dev):
@@ -790,6 +845,125 @@ def lex_parity(dev):
                              "golden history")
 
 
+def obstacle_solve(dev, n2: int = 128, n_runs: int = 3,
+                   max_outer: int = 30):
+    """Phase 11: BASELINE config 5 as ``bench.py:775-817`` builds it, a
+    membrane pushed into a lower obstacle on n2^2 at p=3 (262,144 dofs
+    at 128), solved by ``solve_obstacle_verified`` ``n_runs`` times;
+    every run must be verified by the host numpy f64 residual, feasible
+    and complementary, with a contact zone.  No retry at a smaller
+    size.  ``max_outer`` is 2.5 times the solver's default of 12: at
+    128^2 the active set of two runs in three was still moving after 12
+    PDAS iterations, and one of them left wrong-signed multipliers; six
+    runs on the card settled in 7-15."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.blocks import api
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.solvers import smoothers as sm
+    from hpdg_tpu_torch.solvers.multigrid import (multigrid_solver,
+                                                  parametric_cycle,
+                                                  setup_hierarchy)
+    from hpdg_tpu_torch.solvers.tnnmg import (_tnnmg_one_iter,
+                                              solve_obstacle_verified,
+                                              truncated_matrix)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    chain = [hm.structured((16, 16), lower=(-1, -1), upper=(1, 1))]
+    while chain[-1].n_elements < n2 * n2:
+        chain.append(hm.refine(chain[-1]))
+    mesh = chain[-1]
+    basis = DGBasis(mesh, np.full(mesh.n_elements, 3, dtype=np.int32))
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A64 = api.laplace(basis, penalty=2.0, dirichlet=True, device=dev)
+    b64 = api.l2_functional(basis, lambda x: -8.0 + 0.0 * x[..., 0],
+                            device=dev)
+    lo, up = api.constant_bounds(basis, lower=-0.2, device=dev)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    ndof = basis.ndof
+    nblocks = sum(v.shape[0] for v in A64.values.values())
+    mb64 = sum(v.numel() * v.element_size() for v in A64.values.values()) / 1e6
+    print(f"obstacle {n2}^2 p=3: dofs={ndof} elements={mesh.n_elements} "
+          f"blocks={nblocks} A64_MB={mb64:.1f} "
+          f"mesh_chain={[m.n_elements for m in chain]} host_setup_s="
+          f"{t_mesh:.2f} card_assembly_s={t_asm:.2f}", flush=True)
+    if ndof != 16 * n2 * n2:  # 262,144 at 128^2
+        raise AssertionError(f"obstacle: {ndof} dofs")
+
+    t0 = time.perf_counter()
+    x64, info = solve_obstacle_verified(
+        A64, b64, basis, lo, up, tol=1e-8, maxiter=40, stall_window=3,
+        meshes=chain, n_runs=n_runs, max_outer=max_outer)
+    t_all = time.perf_counter() - t0
+    for i, run in enumerate(info["runs"]):
+        print(f"obstacle run {i}: seconds={run['seconds']:.3f} (tnnmg "
+              f"{run['seconds_tnnmg']:.3f}, pdas {run['seconds_pdas']:.3f}) "
+              f"tnnmg_iterations={run['tnnmg_iterations']} "
+              f"stalled={run['stalled']} pdas_outer={len(run['steps'])} "
+              f"stationary={run['stationary']} "
+              f"steps_per_outer={run['steps']} truncated={run['truncated']} "
+              f"free_residual={run['free_residual']:.3e} "
+              f"feasible={run['feasible']} complementarity="
+              f"{run['complementarity']:.3e} verified={run['verified']}",
+              flush=True)
+    hist = info["tnnmg"]
+    print(f"obstacle best run: tnnmg corrections="
+          f"{['%.3e' % c for c in hist['correction']]} anchored per outer="
+          f"{[['%.2e' % a for a in o['anchored']] for o in info['outer']]} "
+          f"(set-up and {n_runs} runs {t_all:.2f} s)", flush=True)
+    bad = [i for i, run in enumerate(info["runs"])
+           if not (run["verified"] and run["free_residual"] <= 1e-8
+                   and run["feasible"] and run["complementarity"] <= 1e-8
+                   and run["truncated"] > 0)]
+    if bad:
+        raise AssertionError(f"obstacle runs {bad} not verified: "
+                             f"{info['runs']}")
+    if not all(v.shape == (mesh.n_elements, 16) and np.isfinite(v).all()
+               for v in x64.values()):
+        raise AssertionError("obstacle: wrong shape or non-finite values")
+
+    # profiler windows over one f32 TNNMG iteration and one parametric
+    # cycle of the PDAS phase, as the verified solve builds them
+    f32 = torch.float32
+    A32 = bm.BlockSparseMatrix(A64.pattern, A64.dim,
+                               {k: v.to(f32) for k, v in A64.values.items()},
+                               A64.block_shape)
+    b32 = {k: v.to(f32) for k, v in b64.items()}
+    lo32 = {k: v.to(f32) for k, v in lo.items()}
+    up32 = {k: v.to(f32) for k, v in up.items()}
+    mg_step, _ = multigrid_solver(basis, A32, meshes=chain, dtype=f32)
+    one_iter = _tnnmg_one_iter(A32, b32, basis, lo32, up32, mg_step, 1,
+                               1e-13)
+    x0 = {k: torch.clamp(torch.zeros_like(v), lo32[k], up32[k])
+          for k, v in b32.items()}
+    free = {k: torch.as_tensor(v > -0.2 + 1e-6, device=dev)
+            for k, v in x64.items()}
+    data = setup_hierarchy(basis, truncated_matrix(A32, free), meshes=chain,
+                           dtype=f32)
+    cycle = parametric_cycle(data, dtype=f32)
+    dinvs = [sm.inverse_diagonal_blocks(M) for M in data.matrices]
+    nb = float(bv.norm(b32))
+    rhs = {k: torch.where(free[k], v / nb, 0.0) for k, v in b32.items()}
+    zero = bv.zeros_like(rhs)
+    levels = [f"{b.mesh.n_elements}e/p{b.bucket_degrees[0]}"
+              for b in data.bases]
+    for tag, fn in (("TNNMG iteration", lambda: one_iter(x0)),
+                    ("parametric cycle", lambda: cycle(data.matrices, dinvs,
+                                                       zero, rhs))):
+        prof = profile_apply(fn, reps=1)
+        print_profile(f"obstacle {tag}", prof, unit="call")
+        if prof is not None:
+            print(f"obstacle {tag}: wall {prof['wall_ms']:.3f} ms/call "
+                  f"under the profiler, busy share "
+                  f"{prof['device_ms'] / prof['wall_ms']:.3f}", flush=True)
+    print(f"obstacle hierarchy=[{' '.join(levels)}] peak_mem_bytes="
+          f"{torch.cuda.max_memory_allocated(dev)}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -849,6 +1023,9 @@ def main() -> int:
           f"({cheb['steps']} steps, {cheb['cycles']} cycles); first cycle "
           f"from zero: patch {patch12['first']:.3e}, cheb "
           f"{cheb['first']:.3e}", flush=True)
+
+    # ---- phase 11: the obstacle problem (config 5) ----
+    obstacle_solve(dev)
 
     if "jax" in sys.modules or "hpdg_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hpdg_tpu")

@@ -28,7 +28,8 @@ from hpdg_tpu_torch.assemble.plan import (AssemblyPlan, boundary_penalty_coef,
 from hpdg_tpu_torch.basis import tensor
 from hpdg_tpu_torch.basis.dgbasis import DGBasis
 from hpdg_tpu_torch.linalg.blockmatrix import BlockSparseMatrix, zeros_values
-from hpdg_tpu_torch.mesh.structured import require_classic_faces
+from hpdg_tpu_torch.mesh.structured import (require_box_geometry,
+                                            require_classic_faces)
 
 
 def _traction_blocks(d, ax, mu, lam, zA, zB, ihA, ihB, FVD, FDV, FVV, penf,
@@ -73,10 +74,7 @@ def assemble_elasticity(basis: DGBasis, mu: float = 1.0, lam: float = 1.0,
     """The elasticity SIPG matrix with ``block_shape = (dim, dim)``."""
     mesh = basis.mesh
     require_classic_faces(mesh, "assemble_elasticity")
-    if getattr(mesh, "corners", None) is not None \
-            or getattr(mesh, "jac", None) is not None:
-        raise NotImplementedError("elasticity on meshes with geometry: "
-                                  "ROADMAP queue 1, item 19")
+    require_box_geometry(mesh, "assemble_elasticity")
     device = dev.resolve(device)
     plan = plan or build_plan(basis)
     d = mesh.dim

@@ -1,0 +1,147 @@
+"""High-level building blocks: assemble, solve.
+
+Port of ``hpdg_tpu.blocks.api`` (the reference's BuildingBlocks
+namespace, the API a user programs against).  ``mass`` and
+``dirichlet_data`` wait for ROADMAP queue 1, item 20; ``local_norm``,
+``global_error`` and ``interpolate`` for item 18.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hpdg_tpu_torch import device as dev
+from hpdg_tpu_torch.assemble import rhs as _rhs
+from hpdg_tpu_torch.assemble import sipg as _sipg
+from hpdg_tpu_torch.basis.dgbasis import DGBasis
+from hpdg_tpu_torch.linalg import blockmatrix as bm
+from hpdg_tpu_torch.linalg import blockvector as bv
+from hpdg_tpu_torch.solvers.cg import loop_solve, pcg
+from hpdg_tpu_torch.solvers.multigrid import multigrid_solver
+from hpdg_tpu_torch.solvers.tnnmg import solve_tnnmg
+
+
+def laplace(basis: DGBasis, penalty: float = 2.0, dirichlet: bool = False,
+            diffusion=None, plan=None, dtype=torch.float64, device=None):
+    """SIPG stiffness matrix (BuildingBlocks::laplace)."""
+    return _sipg.assemble_laplace(basis, penalty=penalty, dirichlet=dirichlet,
+                                  diffusion=diffusion, plan=plan, dtype=dtype,
+                                  device=device)
+
+
+def mass(basis: DGBasis, weight=None, quad_order=None, plan=None,
+         dtype=torch.float64, device=None):
+    raise NotImplementedError("api.mass (assemble/mass.py): ROADMAP queue 1, "
+                              "item 20")
+
+
+def l2_functional(basis: DGBasis, f, quad_order=None, dtype=torch.float64,
+                  device=None):
+    """Load vector ∫ f v (BuildingBlocks::l2Functional)."""
+    return _rhs.l2_functional(basis, f, quad_order=quad_order, dtype=dtype,
+                              device=device)
+
+
+def dirichlet_data(basis: DGBasis, g, penalty: float = 2.0, plan=None,
+                   dtype=torch.float64, device=None):
+    raise NotImplementedError("api.dirichlet_data (the Dirichlet part of "
+                              "assemble/rhs.py): ROADMAP queue 1, item 20")
+
+
+def solve_linear(basis: DGBasis, A, b, x0=None, tol: float = 1e-8,
+                 maxiter: int = 100, meshes=None, method: str = "multigrid",
+                 operator_factory=None, **mg_kwargs):
+    """hp-multigrid linear solve (BuildingBlocks::solveLinear) on the
+    device of ``A``.
+
+    ``method``: "multigrid" (the V-cycle iterated to the energy-norm
+    correction ``tol``), "cg+mg" (the V-cycle as PCG preconditioner),
+    "mf" (the matrix-free solver on a full uniform lattice, its cycle
+    iterated against ``A``), or "onchip": f32 V-cycle chains of an f32
+    copy of ``A`` inside the f64 refinement (``solvers.refine``), the f64
+    residual on the device, the answer verified by a host numpy f64
+    SpMV.  Returns ``(x, info)``."""
+    x0 = bv.zeros_like(b) if x0 is None else x0
+    matvec = lambda v: bm.matvec(A, v)  # noqa: E731
+    if method == "onchip":
+        from hpdg_tpu_torch.solvers.refine import refinement_solve
+        from hpdg_tpu_torch.solvers.tnnmg import _np_matvec
+        A32 = bm.BlockSparseMatrix(
+            A.pattern, A.dim, {k: v.float() for k, v in A.values.items()},
+            A.block_shape)
+        step32, _ = multigrid_solver(basis, A32, meshes=meshes,
+                                     operator_factory=operator_factory,
+                                     dtype=torch.float32, **mg_kwargs)
+        b_host = {k: v.detach().cpu().double().numpy() for k, v in b.items()}
+
+        def host_residual(x64):
+            Ax = _np_matvec(A, {k: v.numpy() for k, v in x64.items()})
+            return {k: torch.from_numpy(b_host[k] - Ax[k]) for k in b_host}
+
+        chain_k = 8
+        return refinement_solve(
+            step32, lambda x: bv.sub(b, matvec(x)), b, chain_k=chain_k,
+            tol=tol, max_steps=max(1, -(-maxiter // chain_k)),
+            host_residual=host_residual)
+    if method == "mf":
+        from hpdg_tpu_torch.solvers.multigrid import \
+            matrixfree_multigrid_solver
+        first = next(iter(b.values()))
+        mg_kwargs.setdefault("dtype", first.dtype)
+        mg_kwargs.setdefault("device", first.device)
+        step, _ = matrixfree_multigrid_solver(basis, meshes=meshes,
+                                              **mg_kwargs)
+        return loop_solve(step, x0, b, matvec_fn=matvec, tol=tol,
+                          maxiter=maxiter)
+    step, _ = multigrid_solver(basis, A, meshes=meshes,
+                               operator_factory=operator_factory,
+                               **mg_kwargs)
+    if method == "multigrid":
+        return loop_solve(step, x0, b, matvec_fn=matvec, tol=tol,
+                          maxiter=maxiter)
+    if method == "cg+mg":
+        precond = lambda r: step(bv.zeros_like(r), r)  # noqa: E731
+        return pcg(matvec, b, x0=x0, precond=precond, tol=tol,
+                   maxiter=maxiter)
+    raise ValueError(method)
+
+
+def solve_obstacle(basis: DGBasis, A, b, lo, up, x0=None, tol: float = 1e-9,
+                   maxiter: int = 100, meshes=None, **kwargs):
+    """Obstacle problem by TNNMG (BuildingBlocks::solveObstacle) on the
+    device of ``A``; ``lo``/``up`` are bucketed bound vectors."""
+    step, _ = multigrid_solver(basis, A, meshes=meshes,
+                               dtype=next(iter(b.values())).dtype)
+    return solve_tnnmg(A, b, basis, lo, up, mg_step=step, x0=x0, tol=tol,
+                       maxiter=maxiter, **kwargs)
+
+
+def local_norm(basis: DGBasis, x, penalty: float = 2.0,
+               dirichlet: bool = False, plan=None):
+    raise NotImplementedError("api.local_norm (matrixfree/norms.py): "
+                              "ROADMAP queue 1, item 18")
+
+
+def global_error(basis: DGBasis, x, penalty: float = 2.0,
+                 dirichlet: bool = False):
+    raise NotImplementedError("api.global_error (matrixfree/norms.py): "
+                              "ROADMAP queue 1, item 18")
+
+
+def constant_bounds(basis: DGBasis, lower=-np.inf, upper=np.inf,
+                    dtype=torch.float64, device=None):
+    """Bucketed box-constraint vectors ``(lo, up)`` of constant value."""
+    device = dev.resolve(device)
+    lo = {p: torch.full((basis.bucket_size(p), basis.n_local(p)), lower,
+                        dtype=dtype, device=device)
+          for p in basis.bucket_degrees}
+    up = {p: torch.full((basis.bucket_size(p), basis.n_local(p)), upper,
+                        dtype=dtype, device=device)
+          for p in basis.bucket_degrees}
+    return lo, up
+
+
+def interpolate(basis: DGBasis, f, dtype=torch.float64, device=None) -> dict:
+    raise NotImplementedError("api.interpolate (DGBasis.node_positions): "
+                              "ROADMAP queue 1, item 18")

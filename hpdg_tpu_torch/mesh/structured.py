@@ -79,6 +79,16 @@ def require_classic_faces(mesh, what: str) -> None:
             "item 19 (geometry)")
 
 
+def require_box_geometry(mesh, what: str) -> None:
+    """Guard for code paths that know only box elements: a mesh with
+    first-class geometry (affine ``jac`` or trilinear ``corners``)
+    comes with ROADMAP queue 1, item 19."""
+    if getattr(mesh, "corners", None) is not None \
+            or getattr(mesh, "jac", None) is not None:
+        raise NotImplementedError(f"{what} on meshes with geometry: "
+                                  "ROADMAP queue 1, item 19")
+
+
 @dataclass(frozen=True)
 class BoundaryFaces:
     elem: np.ndarray  # (nbf,) int32

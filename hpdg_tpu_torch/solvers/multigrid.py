@@ -12,6 +12,10 @@ multigrid_impl).  Two entry points:
   (``transfer.element``); smoothers are colored or lexicographic block
   GS, block Jacobi or vertex patches; the coarse solve is a dense
   Cholesky or colored block GS.
+* :func:`parametric_cycle`: the V-cycle as a function of the level
+  matrices, for hierarchies renewed every outer iteration (TNNMG's
+  truncated systems); colored block GS and a block-Jacobi PCG coarse
+  solve of fixed length.
 * :func:`matrixfree_multigrid_solver`: the SIPG Laplacian on a full
   uniform lattice with the stencil (``ops.uniform_stencil``: the CUDA
   kernel on the card, its plain twin on the CPU) as every non-coarse
@@ -351,6 +355,89 @@ def multigrid_solver(basis: DGBasis, A: bm.BlockSparseMatrix,
             return vcycle(levels, coarse_solve, x, b, mu=mu)
 
     return step, data
+
+
+def parametric_cycle(data: MultigridData, pre_steps: int = 3,
+                     post_steps: int = 3, coarse_cg_iters: int = 60,
+                     dtype=torch.float64):
+    """The V-cycle as a function of the level matrices.
+
+    Returns ``cycle(mats, dinvs, x, b) -> x``: ``mats`` are the level
+    matrices (coarsest first) and ``dinvs`` their inverse diagonal
+    blocks.  Only the static structure (colorings, transfers) is built
+    here, so a caller that renews the hierarchy every outer iteration
+    (TNNMG's truncated systems, ``MultigridData.renew``) reuses one
+    cycle.  Smoothing is colored block GS (a fresh residual per color,
+    the colors reversed in the post-sweeps); the coarse solve is
+    block-Jacobi PCG with a fixed ``coarse_cg_iters``, guarded so that
+    exact convergence gives zero steps instead of 0/0 in any dtype.
+    """
+    transfers = data.transfers
+    device = next(iter(data.matrices[-1].values.values())).device
+    # per level, per color: {p: bucket positions of that color's elements}
+    colorings = []
+    for bas in data.bases:
+        colors = sm.greedy_coloring(bas.mesh)
+        per_color = []
+        for c in range(int(colors.max()) + 1):
+            per_p = {}
+            for p in bas.bucket_degrees:
+                pos = np.flatnonzero(colors[bas.bucket_elems[p]] == c)
+                if len(pos):
+                    per_p[p] = torch.as_tensor(pos, dtype=torch.int64,
+                                               device=device)
+            per_color.append(per_p)
+        colorings.append(per_color)
+    ncomp = data.matrices[0].block_shape[0]
+
+    def gs(M, Dinv, lvl, x, b, reverse=False):
+        order = colorings[lvl][::-1] if reverse else colorings[lvl]
+        for per_p in order:
+            r = bv.sub(b, bm.matvec(M, x))
+            x = dict(x)
+            for p, pos in per_p.items():
+                upd = torch.bmm(Dinv[p][pos], r[p][pos].unsqueeze(-1))
+                x[p] = x[p].index_add(0, pos, upd.squeeze(-1))
+        return x
+
+    def coarse_solve(M, Dinv, b):
+        x = bv.zeros_like(b)
+        r = b
+        pdir = sm.apply_blockdiag(Dinv, r)
+        rz = bv.dot(r, pdir)
+        for _ in range(coarse_cg_iters):
+            Ap = bm.matvec(M, pdir)
+            den = bv.dot(pdir, Ap)
+            alpha = torch.where(den > 0, rz / torch.where(den > 0, den, 1.0),
+                                0.0)
+            x = bv.axpy(alpha, pdir, x)
+            r = bv.axpy(-alpha, Ap, r)
+            z = sm.apply_blockdiag(Dinv, r)
+            rz_new = bv.dot(r, z)
+            beta = torch.where(rz > 0, rz_new / torch.where(rz > 0, rz, 1.0),
+                               0.0)
+            pdir = bv.axpy(beta, pdir, z)
+            rz = rz_new
+        return x
+
+    def cycle(mats, dinvs, x, b):
+        def run(l, x, b):
+            if l == 0:
+                return coarse_solve(mats[0], dinvs[0], b)
+            for _ in range(pre_steps):
+                x = gs(mats[l], dinvs[l], l, x, b)
+            r = bv.sub(b, bm.matvec(mats[l], x))
+            T = transfers[l - 1]
+            rc = T.restrict(r, dtype=dtype, ncomp=ncomp)
+            xc = run(l - 1, bv.zeros_like(rc), rc)
+            x = bv.add(x, T.prolong(xc, dtype=dtype, ncomp=ncomp))
+            for _ in range(post_steps):
+                x = gs(mats[l], dinvs[l], l, x, b, reverse=True)
+            return x
+
+        return run(len(data.bases) - 1, x, b)
+
+    return cycle
 
 
 def matrixfree_multigrid_solver(basis: DGBasis, penalty: float = 2.0,
