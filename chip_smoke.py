@@ -16,16 +16,22 @@ Phases (any failure ends the run with a nonzero exit code):
    32^3 solves, a 2D lattice and one 3D lattice per instantiation that is
    no multiple of its tile, both penalty scalings, Dirichlet on and off
    (bound 1e-5 of max|y|); at the 32^3 levels (p = 4, 2, 1) and the 16^3
-   and 8^3 p=1 levels: K1's median apply time (CUDA events) and its
-   device time per launch (profiler), its bound from the shapes and the
-   share of it, the plain twin's time, and ``library_ms``, one
-   ``torch.sparse_bsr_tensor`` product with the same matrix;
+   and 8^3 p=1 levels: K1's median apply time (CUDA events), its time
+   per apply over 200 back-to-back launches (CUDA events) and, after all
+   timings, its device time per launch (profiler, each level in windows
+   of its own, up to 3 until one sees the kernel), its bound from the
+   shapes and the share of it, the plain twin's time, and
+   ``library_ms``, one ``torch.sparse_bsr_tensor`` product with the same
+   matrix;
 4. the verified 3D SIPG p=4 hp-multigrid solve at 12^3 (216,000 dofs)
    and 32^3 (4,096,000 dofs): f32 V-cycle chains, f64 anchors on the
-   card, one f64 verification on the host; asserts verified <= 1e-8 and
-   that K1 ran as every level's operator, as often as the hierarchy
-   implies; at 32^3 a profiler window of 3 V-cycles: K1's device ms per
-   cycle, all device ms per cycle, wall ms per cycle and the busy share;
+   card, one f64 verification on the host; asserts verified <= 1e-8,
+   that K1 (asked for by ``use_kernel=True``) ran as every level's
+   operator, as often as the hierarchy implies, and that the patch
+   smoother was built on every level whose patch block fits
+   ``PATCH_MAX_BLOCK``; at 32^3 a profiler window of 3 V-cycles: K1's
+   device ms per cycle, all device ms per cycle, wall ms per cycle and
+   the busy share;
 5. the entry step of ``__graft_entry__.entry()``: ``sipg_operator`` at 8^3
    p=4 (f32, Dirichlet, penalty 2, "measure") against K1 on the same
    lattice (bound 1e-5 of max|y|);
@@ -59,8 +65,9 @@ Phases (any failure ends the run with a nonzero exit code):
    1e-10 |c| + 5e-14 of the C++ history ``cpp/golden_mg3d_n12_p4.json``,
    and the seconds per cycle;
 10. the 12^3 p=4 verified solve of phase 4 with the matrix-free
-   solver's default smoother, block-Jacobi Chebyshev of degree 3, K1 as
-   every level's operator; the contraction per cycle beside phase 4's;
+   solver's default smoother, block-Jacobi Chebyshev of degree 3, K1
+   (asked for by name) as every level's operator; the contraction per
+   cycle beside phase 4's;
 11. BASELINE config 5 as ``bench.py:775-817`` builds it: a membrane
    pushed into a lower obstacle on 128^2 at p=3 (262,144 dofs), f64
    SIPG matrix assembled on the card, ``solve_obstacle_verified`` three
@@ -70,6 +77,18 @@ Phases (any failure ends the run with a nonzero exit code):
    <= 1e-8, a contact zone; per run the seconds of both phases, the
    iterations and truncated dofs; launches, device ms and busy share of
    one TNNMG iteration and one parametric cycle (profiler), peak memory.
+
+12. BASELINE config 3 as ``examples/adaptive_lshape.py`` runs it, at
+   ``lshape(16)`` refined 3 times (196,608 dofs at p=1): six rounds of
+   solve (f32 V-cycle chains of the assembled hp-multigrid in the f64
+   refinement, verified <= 1e-8 by host numpy f64), jump indicator,
+   Dörfler marking, smoothness indicator, ``refine_local`` or a degree
+   raise, and ``interpolate_to``; per step the set-up, solve, estimator
+   and persistence seconds, V-cycles, residual, eta and marks; degrees
+   in 1..6 and raised, 2:1 balance, eta decreasing; on the
+   last basis the indicators and error norms on the card against the
+   CPU (1e-10), a carried and an unrefined linear function (1e-12), and
+   a profiler window of one V-cycle and the peak memory.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -244,22 +263,58 @@ def time_level(label, op, twin, u, yk, abs_err, dev) -> dict:
     p = op.p
     tk = float(np.median(event_times(lambda: op({p: u}), 30)))
     tt = float(np.median(event_times(lambda: twin({p: u}), 30)))
-    prof = profile_apply(lambda: op({p: u}), reps=30)
-    dev_ms = prof["device_ms"] if prof else None
+    batched = batched_ms(lambda: op({p: u}), 200)
     bound, bound_by = k1_bound(op)
     lib, err = library_ms(op, u, yk, dev)
-    t = dict(ms=tk, plain_ms=tt, device_ms=dev_ms, bound_ms=bound,
-             bound_by=bound_by, library_ms=lib, max_abs_err=abs_err)
+    t = dict(ms=tk, plain_ms=tt, batched_ms=batched, bound_ms=bound,
+             bound_by=bound_by, library_ms=lib, max_abs_err=abs_err,
+             label=label, op=op, u=u)
     print(f"apply-time {label} bs={op.tables.bs} "
-          f"K1_median_ms={tk:.4f} K1_device_ms="
-          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'} "
+          f"K1_median_ms={tk:.4f} K1_batched_ms={batched:.4f} "
           f"bound_ms={bound:.4f} ({bound_by}) share_of_bound="
-          f"{bound / tk:.3f}"
-          + ("" if dev_ms is None else f" (device {bound / dev_ms:.3f})")
-          + f" plain_median_ms={tt:.4f} library_ms="
+          f"{bound / tk:.3f} (batched {bound / batched:.3f}) "
+          f"plain_median_ms={tt:.4f} library_ms="
           + (f"{lib:.4f}" if lib is not None else f"refused ({err})"),
           flush=True)
     return t
+
+
+def batched_ms(fn, reps: int) -> float:
+    """ms per call of ``reps`` back-to-back calls of ``fn()`` between two
+    CUDA events: near the device time where a call's kernel outlasts its
+    host launch."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def profile_levels(timing: dict, tries: int = 3):
+    """Phase 3, continued: K1's profiler device time per launch at each
+    timed level, each level in profiler windows of its own (up to
+    ``tries`` windows until one sees a device event), after all the
+    event timings."""
+    for t in timing.values():
+        op, u = t["op"], t["u"]
+        p = op.p
+        t["device_ms"], used = None, 0
+        while t["device_ms"] is None and used < tries:
+            used += 1
+            prof = profile_apply(lambda: op({p: u}), reps=30)
+            if prof is not None:
+                t["device_ms"] = prof["device_ms"]
+        dev_ms = t["device_ms"]
+        print(f"apply-device {t['label']} bs={op.tables.bs} K1_device_ms="
+              + ("not measured" if dev_ms is None else
+                 f"{dev_ms:.4f} share_of_bound {t['bound_ms'] / dev_ms:.3f}")
+              + f" (profiler windows: {used})", flush=True)
+        t.pop("op"), t.pop("u")
 
 
 def solve(n: int, dev, p: int = 4, chain_k: int = 2, smoother: str = "patch",
@@ -273,7 +328,8 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2, smoother: str = "patch",
     from hpdg_tpu_torch.linalg import blockvector as bv
     from hpdg_tpu_torch.matrixfree.uniform import uniform_sipg_factorized
     from hpdg_tpu_torch.ops.uniform_stencil import UniformStencilOperator
-    from hpdg_tpu_torch.solvers.multigrid import matrixfree_multigrid_solver
+    from hpdg_tpu_torch.solvers.multigrid import (PATCH_MAX_BLOCK,
+                                                  matrixfree_multigrid_solver)
     from hpdg_tpu_torch.solvers.refine import refinement_solve
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -289,8 +345,8 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2, smoother: str = "patch",
     basis = DGBasis(mesh, np.full(mesh.n_elements, p, dtype=np.int32))
     kw = dict(penalty=PENALTY, dirichlet=True, penalty_scaling=SCALING)
     step, info = matrixfree_multigrid_solver(
-        basis, meshes=meshes, smoother=smoother, dtype=torch.float32,
-        device=dev, **kw)
+        basis, meshes=meshes, smoother=smoother, use_kernel=True,
+        dtype=torch.float32, device=dev, **kw)
     f = lambda x: (2 * np.pi**2 * torch.sin(np.pi * x[..., 0])  # noqa: E731
                    * torch.sin(np.pi * x[..., 1]) * torch.sin(np.pi * x[..., 2]))
     b64 = l2_functional(basis, f, dtype=torch.float64, device=dev)
@@ -307,6 +363,15 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2, smoother: str = "patch",
     if not all(isinstance(op, UniformStencilOperator) and op.device == dev
                for op in ops):
         raise AssertionError("a level operator is not K1 on the card")
+    if smoother == "patch":
+        # every level whose patch block fits smooths by patches: the
+        # solver's Chebyshev fallback must not have replaced one
+        fits = [2 ** 3 * (b.bucket_degrees[0] + 1) ** 3 <= PATCH_MAX_BLOCK
+                for b in info["bases"][1:]]
+        built = [sm is not None for sm in info["smoothers"]]
+        if built != fits:
+            raise AssertionError(f"patch smoothers built {built}, expected "
+                                 f"{fits} from PATCH_MAX_BLOCK")
     for op in ops:
         op.launches = 0
     x64, res = refinement_solve(step, residual, b64, chain_k=chain_k,
@@ -964,6 +1029,200 @@ def obstacle_solve(dev, n2: int = 128, n_runs: int = 3,
           f"{torch.cuda.max_memory_allocated(dev)}", flush=True)
 
 
+def _rel_max(tag: str, card, cpu, bound: float):
+    """max|card - cpu| / max|cpu| for arrays or 0-d tensors; raises above
+    ``bound``, on non-finite values or on a differing zero/NaN pattern."""
+    a = np.asarray(card.cpu() if torch.is_tensor(card) else card,
+                   dtype=np.float64)
+    b = np.asarray(cpu.cpu() if torch.is_tensor(cpu) else cpu,
+                   dtype=np.float64)
+    if a.shape != b.shape or not np.array_equal(a == 0, b == 0) \
+            or not np.isfinite(a).all() or not np.isfinite(b).all():
+        raise AssertionError(f"{tag}: shapes, zeros or finiteness differ")
+    scale = float(np.abs(b).max())
+    rel = float(np.abs(a - b).max()) / scale
+    print(f"config 3 card-vs-cpu {tag}: rel {rel:.3e} (bound {bound:g}) "
+          f"{'ok' if rel <= bound else 'FAIL'}", flush=True)
+    if not rel <= bound:
+        raise AssertionError(f"{tag}: card and CPU differ, rel {rel:.3e}")
+
+
+def adaptive_lshape_loop(dev, n: int = 16, levels: int = 3, steps: int = 6):
+    """Phase 12: BASELINE config 3, the hp-adaptive L-shape loop of
+    ``examples/adaptive_lshape.py`` through the port's entry point
+    (``hpdg_tpu_torch.examples.adaptive_lshape.run``): -Δu = 1 on
+    ``lshape(n)`` refined ``levels`` times (49,152 elements, 196,608
+    dofs at p=1 for n=16, levels=3), ``steps`` rounds of solve (f32
+    V-cycle chains in the f64 refinement, ``method="onchip"``, the
+    assembled hp-multigrid with colored block GS 3+3 over the p-levels
+    and the refinement history as h-levels, verified by host numpy f64),
+    jump indicator, Dörfler marking at 0.4, smoothness indicator at 0.5,
+    ``refine_local`` or a degree raise, and ``interpolate_to``.  Then, on
+    the last solved basis: the indicators and error norms on the card
+    against the port's CPU run, the carried linear function, ``unrefine``
+    with ``restrict_to_coarse``, a profiler window of one V-cycle."""
+    from hpdg_tpu_torch.blocks import api
+    from hpdg_tpu_torch.blocks.persist import (interpolate_to,
+                                               restrict_to_coarse, save_state)
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.estimators import error as err
+    from hpdg_tpu_torch.estimators.smoothness import smoothness_indicator
+    from hpdg_tpu_torch.examples import adaptive_lshape
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.matrixfree.norms import (ipdg_local_norm,
+                                                 jump_indicator)
+    from hpdg_tpu_torch.mesh.adaptive import close_marks, unrefine
+    from hpdg_tpu_torch.solvers import smoothers as sm
+    from hpdg_tpu_torch.solvers.multigrid import (multigrid_solver,
+                                                  setup_hierarchy)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    recs = adaptive_lshape.run(n=n, steps=steps, frac=0.4, smooth_cut=0.5,
+                               levels=levels, method="onchip", device=dev)
+    t_loop = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"config 3 lshape({n}) levels={levels} steps={steps}: loop "
+          f"{t_loop:.2f} s, {smi()}", flush=True)
+    bad = []
+    for r in recs:
+        b, info = r["basis"], r["info"]
+        mesh = b.mesh
+        hist = {int(k): int(v) for k, v in r["degrees"].items()}
+        setup = r["mesh_s"] + r["assembly_s"] + r["hierarchy_s"]
+        print(f"config 3 step {r['step']}: elements={mesh.n_elements} "
+              f"dofs={r['ndof']} degrees={hist} "
+              f"hanging_faces={int((mesh.faces.nc_code > 0).sum())} "
+              f"h_levels={len(r['meshes'] or [])} setup_s={setup:.3f} (mesh "
+              f"{r['mesh_s']:.3f}, plan+assembly {r['assembly_s']:.3f}, "
+              f"hierarchy {r['hierarchy_s']:.3f}) solve_s={r['solve_s']:.3f} "
+              f"vcycles={info['cycles']} steps={info['steps']} "
+              f"verified_rel_residual={info['rel_residual']:.3e} "
+              f"eta={r['eta_total']:.6e} estimate_s={r['estimate_s']:.3f} "
+              f"h_marks={int(r['refine_h'].sum())} "
+              f"p_marks={int(r['raise_p'].sum())} "
+              f"interpolate_s={r['interpolate_s']:.3f}", flush=True)
+        if not (info["verified"] and info["rel_residual"] <= 1e-8):
+            bad.append(f"step {r['step']} not verified")
+        if not (1 <= b.degrees.min() and b.degrees.max() <= 6):
+            bad.append(f"step {r['step']} degrees {hist}")
+        if close_marks(mesh, np.zeros(mesh.n_elements, bool)).any():
+            bad.append(f"step {r['step']} mesh not 2:1 balanced")
+        if not all(bool(torch.isfinite(v).all()) for v in r["x"].values()):
+            bad.append(f"step {r['step']} non-finite solution")
+    maxp = [r["basis"].max_degree() for r in recs]
+    print(f"config 3 max p per step {maxp}, eta first "
+          f"{recs[0]['eta_total']:.6e} last {recs[-1]['eta_total']:.6e}, "
+          f"peak_mem_bytes={peak}", flush=True)
+    if recs[0]["ndof"] != 4 * 3 * n * n * 4 ** levels:  # p=1 quads
+        bad.append(f"{recs[0]['ndof']} dofs at step 0")
+    if not recs[-1]["eta_total"] < recs[0]["eta_total"]:
+        bad.append("eta did not decrease")
+    if maxp[-1] < 2:
+        bad.append(f"max p per step {maxp}: no degree was raised")
+    if bad:
+        raise AssertionError(f"config 3: {bad}")
+
+    # the last solved basis: card against the port's CPU run
+    last, prev = recs[-1], recs[-2]
+    basis, x = last["basis"], last["x"]
+    x_cpu = {p: v.cpu() for p, v in x.items()}
+    kw = dict(penalty=2.0)
+    _rel_max("jump_indicator",
+             jump_indicator(basis, device=dev, **kw)(x),
+             jump_indicator(basis, device="cpu", **kw)(x_cpu), 1e-10)
+    _rel_max("ipdg_local_norm (dirichlet)",
+             ipdg_local_norm(basis, dirichlet=True, device=dev, **kw)(x),
+             ipdg_local_norm(basis, dirichlet=True, device="cpu", **kw)(x_cpu),
+             1e-10)
+    _rel_max("smoothness_indicator", smoothness_indicator(basis, x),
+             smoothness_indicator(basis, x_cpu), 1e-10)
+    u = lambda q: (torch.sin(np.pi * q[..., 0])  # noqa: E731
+                   * torch.sin(np.pi * q[..., 1]))
+    gu = lambda q: np.pi * torch.stack(  # noqa: E731
+        [torch.cos(np.pi * q[..., 0]) * torch.sin(np.pi * q[..., 1]),
+         torch.sin(np.pi * q[..., 0]) * torch.cos(np.pi * q[..., 1])], -1)
+    ui = api.interpolate(basis, u, device=dev)
+    ui_cpu = api.interpolate(basis, u, device="cpu")
+    _rel_max("l2_error(interpolate(u))", err.l2_error(basis, ui, u),
+             err.l2_error(basis, ui_cpu, u), 1e-10)
+    _rel_max("h1_seminorm_error(interpolate(u))",
+             err.h1_seminorm_error(basis, ui, gu),
+             err.h1_seminorm_error(basis, ui_cpu, gu), 1e-10)
+
+    # persistence: a linear function carried from the step before, and
+    # merged back by unrefine + restrict_to_coarse, is reproduced
+    lin = lambda q: 1.0 + q[..., 0] - 2.0 * q[..., 1]  # noqa: E731
+    t0 = time.perf_counter()
+    carried = interpolate_to(
+        save_state(prev["basis"], api.interpolate(prev["basis"], lin,
+                                                  device=dev)), basis,
+        device=dev)
+    torch.cuda.synchronize()
+    t_carry = time.perf_counter() - t0
+    check_rel("config 3 interpolate_to(linear) vs interpolate",
+              api.interpolate(basis, lin, device=dev), carried, 1e-12)
+    fine = basis.mesh
+    t0 = time.perf_counter()
+    coarse = unrefine(fine, fine.child_pos >= 0)
+    t_unref = time.perf_counter() - t0
+    cbasis = DGBasis(coarse, basis.degrees[coarse.parent])
+    t0 = time.perf_counter()
+    restricted = restrict_to_coarse(
+        save_state(basis, api.interpolate(basis, lin, device=dev)), cbasis,
+        device=dev)
+    torch.cuda.synchronize()
+    t_restrict = time.perf_counter() - t0
+    merged = int((coarse.child_pos == -2).sum())
+    print(f"config 3 persistence: interpolate_to {t_carry:.3f} s; unrefine "
+          f"{fine.n_elements} -> {coarse.n_elements} elements ({merged} "
+          f"merged groups) {t_unref:.3f} s, restrict_to_coarse "
+          f"{t_restrict:.3f} s", flush=True)
+    if merged == 0:
+        raise AssertionError("config 3: unrefine merged no sibling group")
+    check_rel("config 3 unrefine + restrict_to_coarse(linear) vs interpolate",
+              api.interpolate(cbasis, lin, device=dev), restricted, 1e-12)
+
+    # one V-cycle of the last step's solver under the profiler
+    A = api.laplace(basis, penalty=2.0, dirichlet=True, device=dev)
+    A32 = bm.BlockSparseMatrix(A.pattern, A.dim,
+                               {k: v.float() for k, v in A.values.items()},
+                               A.block_shape)
+    # the last step's set-up, part by part: the Galerkin hierarchy, one
+    # greedy coloring of the finest mesh, the whole solver set-up
+    t0 = time.perf_counter()
+    setup_hierarchy(basis, A32, meshes=last["meshes"], dtype=torch.float32)
+    torch.cuda.synchronize()
+    t_gal = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sm.greedy_coloring(basis.mesh)
+    t_col = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, data = multigrid_solver(basis, A32, meshes=last["meshes"],
+                                  dtype=torch.float32)
+    torch.cuda.synchronize()
+    t_mg = time.perf_counter() - t0
+    print(f"config 3 last step set-up: galerkin_hierarchy_s={t_gal:.3f} "
+          f"greedy_coloring_finest_s={t_col:.3f} (the solver colors each "
+          f"smoothed level twice) solver_setup_s={t_mg:.3f}", flush=True)
+    b32 = {k: v.float() for k, v in api.l2_functional(
+        basis, lambda q: 1.0 + 0.0 * q[..., 0], device=dev).items()}
+    x0 = bv.zeros_like(b32)
+    prof = profile_apply(lambda: step(x0, b32), reps=1)
+    levels_s = " ".join(f"{b.mesh.n_elements}e/p{b.max_degree()}"
+                        for b in data.bases)
+    print(f"config 3 hierarchy=[{levels_s}] smoothers={data.smoothers} "
+          f"coarse={data.coarse}", flush=True)
+    print_profile("config 3 V-cycle", prof, unit="cycle")
+    if prof is not None:
+        print(f"config 3 V-cycle: wall {prof['wall_ms']:.3f} ms/cycle under "
+              f"the profiler, busy share "
+              f"{prof['device_ms'] / prof['wall_ms']:.3f}", flush=True)
+    print(f"config 3 peak_mem_bytes={torch.cuda.max_memory_allocated(dev)} "
+          f"(loop {peak})", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1001,6 +1260,7 @@ def main() -> int:
 
     # ---- phase 3: kernel vs plain twin ----
     timing = check_kernel(dev)
+    profile_levels(timing)
 
     # ---- phase 4: the solves ----
     patch12 = solve(12, dev)
@@ -1026,6 +1286,9 @@ def main() -> int:
 
     # ---- phase 11: the obstacle problem (config 5) ----
     obstacle_solve(dev)
+
+    # ---- phase 12: the hp-adaptive L-shape (config 3) ----
+    adaptive_lshape_loop(dev)
 
     if "jax" in sys.modules or "hpdg_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hpdg_tpu")

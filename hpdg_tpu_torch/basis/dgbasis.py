@@ -12,7 +12,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from hpdg_tpu_torch.mesh.structured import Mesh
+from hpdg_tpu_torch.basis import lagrange, tensor
+from hpdg_tpu_torch.mesh.structured import Mesh, require_box_geometry
 
 
 @dataclass(frozen=True)
@@ -62,6 +63,17 @@ class DGBasis:
 
     def max_degree(self) -> int:
         return int(self.degrees.max())
+
+    def node_positions(self, p: int) -> np.ndarray:
+        """Physical positions of the nodal dofs of bucket p, shape
+        ``(n_p, (p+1)^dim, dim)`` (box meshes; mapped geometry waits for
+        ROADMAP queue 1, item 19)."""
+        require_box_geometry(self.mesh, "DGBasis.node_positions")
+        ref = lagrange.nodes_1d(p, self.family)[tensor.multiindices(p,
+                                                                    self.dim)]
+        elems = self.bucket_elems[p]
+        return (self.mesh.lower[elems][:, None, :]
+                + ref[None, :, :] * self.mesh.extent[elems][:, None, :])
 
     def with_degrees(self, degrees: np.ndarray) -> "DGBasis":
         return DGBasis(self.mesh, degrees, self.family)

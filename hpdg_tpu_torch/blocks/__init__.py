@@ -1,4 +1,4 @@
-"""High-level building blocks (the reference's BuildingBlocks API);
-``persist`` waits for ROADMAP queue 1, item 18."""
+"""High-level building blocks (the reference's BuildingBlocks API) and
+state persistence across adaptation."""
 
-from hpdg_tpu_torch.blocks import api  # noqa: F401
+from hpdg_tpu_torch.blocks import api, persist  # noqa: F401

@@ -2,8 +2,7 @@
 
 Port of ``hpdg_tpu.blocks.api`` (the reference's BuildingBlocks
 namespace, the API a user programs against).  ``mass`` and
-``dirichlet_data`` wait for ROADMAP queue 1, item 20; ``local_norm``,
-``global_error`` and ``interpolate`` for item 18.
+``dirichlet_data`` wait for ROADMAP queue 1, item 20.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ from hpdg_tpu_torch.assemble import sipg as _sipg
 from hpdg_tpu_torch.basis.dgbasis import DGBasis
 from hpdg_tpu_torch.linalg import blockmatrix as bm
 from hpdg_tpu_torch.linalg import blockvector as bv
+from hpdg_tpu_torch.matrixfree.norms import ipdg_local_norm
 from hpdg_tpu_torch.solvers.cg import loop_solve, pcg
 from hpdg_tpu_torch.solvers.multigrid import multigrid_solver
 from hpdg_tpu_torch.solvers.tnnmg import solve_tnnmg
@@ -57,7 +57,8 @@ def solve_linear(basis: DGBasis, A, b, x0=None, tol: float = 1e-8,
 
     ``method``: "multigrid" (the V-cycle iterated to the energy-norm
     correction ``tol``), "cg+mg" (the V-cycle as PCG preconditioner),
-    "mf" (the matrix-free solver on a full uniform lattice, its cycle
+    "mf" (the matrix-free solver, sum-factorized levels in ``b``'s dtype
+    unless ``use_kernel=True`` asks for the stencil kernel; its cycle
     iterated against ``A``), or "onchip": f32 V-cycle chains of an f32
     copy of ``A`` inside the f64 refinement (``solvers.refine``), the f64
     residual on the device, the answer verified by a host numpy f64
@@ -118,15 +119,18 @@ def solve_obstacle(basis: DGBasis, A, b, lo, up, x0=None, tol: float = 1e-9,
 
 
 def local_norm(basis: DGBasis, x, penalty: float = 2.0,
-               dirichlet: bool = False, plan=None):
-    raise NotImplementedError("api.local_norm (matrixfree/norms.py): "
-                              "ROADMAP queue 1, item 18")
+               dirichlet: bool = False, plan=None, device=None):
+    """Per-element squared DG-norm indicator eta_e^2
+    (BuildingBlocks::ipdgLocalNorm) as a tensor on ``device``."""
+    return ipdg_local_norm(basis, penalty=penalty, dirichlet=dirichlet,
+                           plan=plan, device=device)(x)
 
 
 def global_error(basis: DGBasis, x, penalty: float = 2.0,
-                 dirichlet: bool = False):
-    raise NotImplementedError("api.global_error (matrixfree/norms.py): "
-                              "ROADMAP queue 1, item 18")
+                 dirichlet: bool = False, device=None) -> float:
+    """Global DG-norm of x (BuildingBlocks' global error)."""
+    return float(torch.sqrt(torch.sum(local_norm(
+        basis, x, penalty=penalty, dirichlet=dirichlet, device=device))))
 
 
 def constant_bounds(basis: DGBasis, lower=-np.inf, upper=np.inf,
@@ -143,5 +147,9 @@ def constant_bounds(basis: DGBasis, lower=-np.inf, upper=np.inf,
 
 
 def interpolate(basis: DGBasis, f, dtype=torch.float64, device=None) -> dict:
-    raise NotImplementedError("api.interpolate (DGBasis.node_positions): "
-                              "ROADMAP queue 1, item 18")
+    """Nodal interpolation of ``f`` (a callable on a tensor of physical
+    points ``(..., dim)``) into the basis, on ``device``."""
+    device = dev.resolve(device)
+    return {p: f(torch.as_tensor(basis.node_positions(p), dtype=dtype,
+                                 device=device)).to(dtype)
+            for p in basis.bucket_degrees}

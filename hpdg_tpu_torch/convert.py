@@ -43,3 +43,15 @@ def block_sparse_matrix(row_sizes: dict, col_sizes: dict, entries: dict,
     vals = bucket_dict(values, dtype=dtype, device=device)
     return BlockSparseMatrix(pattern, dim, {k: vals[k] for k in values},
                              tuple(block_shape))
+
+
+def saved_state(basis, flat):
+    """A reference ``SavedState`` given as its numpy ``flat`` vector, with
+    ``basis`` the port's ``DGBasis`` on the same element boxes and degree
+    map -> the port's ``blocks.persist.SavedState``."""
+    from hpdg_tpu_torch.blocks.persist import SavedState
+    flat = np.array(flat, dtype=np.float64, copy=True)
+    if flat.shape != (basis.ndof,):
+        raise ValueError(f"flat vector of shape {flat.shape}, the basis has "
+                         f"{basis.ndof} dofs")
+    return SavedState(basis=basis, flat=flat)

@@ -1,6 +1,7 @@
 """Matrix-free operators: the SIPG Laplacian on uniform lattices and
 sum-factorized general (hp-adaptive) meshes, the deduplicated SpMV, the
-diagonal blocks, block-Jacobi drivers and the elasticity apply."""
+diagonal blocks, block-Jacobi loops, the elasticity apply and the
+DG-norm error indicators."""
 
 from hpdg_tpu_torch.matrixfree.uniform import (  # noqa: F401
     uniform_sipg_operator, uniform_sipg_factorized)
@@ -14,3 +15,5 @@ from hpdg_tpu_torch.matrixfree.elasticity import (  # noqa: F401
 from hpdg_tpu_torch.matrixfree.jacobi import (  # noqa: F401
     heat_diagonal_blocks, mass_diagonal_blocks,
     matrix_free_block_projected_jacobi)
+from hpdg_tpu_torch.matrixfree.norms import (  # noqa: F401
+    ipdg_local_norm, jump_indicator)

@@ -7,14 +7,21 @@ differ by more than one refinement level (2:1 balance).  Every
 non-conforming face is then a half-face, which the face matcher of
 ``mesh.structured`` records in ``Faces.nc_code``.
 
-``unrefine`` and ``semicoarsen`` wait for ROADMAP queue 1, item 18.
+``unrefine`` merges complete marked sibling groups back into their
+parents; ``semicoarsen`` merges element pairs along one axis and
+``semicoarsen_chain`` repeats it until the elements are nearly
+isotropic.  Meshes with mapped geometry wait for ROADMAP queue 1, item
+19.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import numpy as np
 
-from hpdg_tpu_torch.mesh.structured import Mesh, from_boxes
+from hpdg_tpu_torch.mesh.structured import (Mesh, from_boxes,
+                                            require_box_geometry)
 
 
 def _levels(mesh: Mesh) -> np.ndarray:
@@ -69,3 +76,107 @@ def refine_local(mesh: Mesh, marks: np.ndarray) -> Mesh:
     extents = np.where(refined[:, None], half, mesh.extent[parent])
     return from_boxes(lowers, extents, parent=parent, child_pos=child_pos,
                       parent_mesh=mesh)
+
+
+def unrefine(mesh: Mesh, marks: np.ndarray) -> Mesh:
+    """Merge marked sibling groups back into their parent elements.
+
+    A group is merged only when ALL of its 2^dim members are marked and
+    the mesh has refinement links.  The result lists the kept elements
+    first (in order, ``parent`` = the element itself, ``child_pos ==
+    -1``), then one element per merged group in parent order (``parent``
+    = the group's first member, ``child_pos == -2``); its
+    ``parent_mesh`` is ``mesh``, so ``blocks.persist.restrict_to_coarse``
+    can carry state across.
+    """
+    require_box_geometry(mesh, "unrefine")
+    if mesh.parent is None or mesh.parent_mesh is None:
+        raise ValueError("unrefine needs refinement links")
+    marks = np.asarray(marks, dtype=bool)
+    nc = 2**mesh.dim
+    pm = mesh.parent_mesh
+    sib = np.flatnonzero(mesh.child_pos >= 0)  # members of sibling groups
+    pes = mesh.parent[sib]
+    size = np.bincount(pes, minlength=pm.n_elements)
+    n_marked = np.bincount(pes, weights=marks[sib], minlength=pm.n_elements)
+    merge = np.flatnonzero((size == nc) & (n_marked == nc))  # sorted parents
+    merged = np.zeros(mesh.n_elements, dtype=bool)
+    merged[sib[np.isin(pes, merge)]] = True
+    kept = np.flatnonzero(~merged)
+    # first member of each merged group: sib is ascending
+    uniq, first = np.unique(pes, return_index=True)
+    first_member = sib[first[np.searchsorted(uniq, merge)]]
+    lowers = np.concatenate([mesh.lower[kept], pm.lower[merge]])
+    extents = np.concatenate([mesh.extent[kept], pm.extent[merge]])
+    parent = np.concatenate([kept, first_member]).astype(np.int32)
+    child_pos = np.concatenate([np.full(len(kept), -1),
+                                np.full(len(merge), -2)]).astype(np.int32)
+    return from_boxes(lowers, extents, parent=parent, child_pos=child_pos,
+                      parent_mesh=mesh)
+
+
+def semicoarsen(mesh: Mesh, axis: int):
+    """Merge element pairs along ONE axis (semicoarsening): every element
+    needs a partner of identical extent adjacent along ``axis``; pairs
+    are taken greedily in element order.
+
+    Returns ``(fine_linked, coarse)``: the coarse mesh (pair order, no
+    links) and a twin of ``mesh`` whose ``parent``/``child_pos`` (0 low,
+    1 high) point into it, for the transfer set-up; ``mesh`` itself is
+    not touched.
+    """
+    require_box_geometry(mesh, "semicoarsen")
+    n = mesh.n_elements
+    tol = mesh.extent.min() * 1e-6
+    # pair low/high elements along the axis by quantized geometry keys
+    key_lo = np.rint(np.delete(mesh.lower, axis, 1) / tol).astype(np.int64)
+    ax_lo = np.rint(mesh.lower[:, axis] / tol).astype(np.int64)
+    ax_hi = np.rint((mesh.lower[:, axis] + mesh.extent[:, axis])
+                    / tol).astype(np.int64)
+    ext_key = np.rint(mesh.extent / tol).astype(np.int64)
+    table = {}
+    for e in range(n):
+        table[(tuple(key_lo[e]), tuple(ext_key[e]), ax_lo[e])] = e
+    parent = np.full(n, -1, dtype=np.int32)
+    child_pos = np.full(n, -1, dtype=np.int32)
+    lows = []
+    for e in range(n):
+        if parent[e] >= 0:
+            continue
+        mate = table.get((tuple(key_lo[e]), tuple(ext_key[e]), ax_hi[e]))
+        if mate is None or parent[mate] >= 0:
+            raise ValueError(f"element {e} has no semicoarsening partner "
+                             f"along axis {axis}")
+        pe = len(lows)
+        parent[e], child_pos[e] = pe, 0
+        parent[mate], child_pos[mate] = pe, 1
+        lows.append(e)
+    lows = np.asarray(lows, dtype=np.int64)
+    extents = mesh.extent[lows].copy()
+    extents[:, axis] *= 2.0
+    coarse = from_boxes(mesh.lower[lows].copy(), extents)
+    fine_linked = replace(mesh, parent=parent, child_pos=child_pos,
+                          parent_mesh=coarse)
+    return fine_linked, coarse
+
+
+def semicoarsen_chain(mesh: Mesh, max_levels: int = 10) -> list:
+    """Semicoarsen the axis with the SMALLEST element extent until the
+    mesh is (nearly) isotropic or no axis can halve.  Returns the
+    coarse-to-fine mesh list for ``multigrid_solver(meshes=...)``; its
+    last entry is a relinked twin of ``mesh``."""
+    chain = [mesh]
+    cur = mesh
+    for _ in range(max_levels):
+        hmin = cur.extent.min(axis=0)
+        axis = int(np.argmin(hmin))
+        if hmin[axis] * 2.0 > hmin.max() * 1.0001:
+            break  # isotropic enough
+        try:
+            fine_linked, coarse = semicoarsen(cur, axis)
+        except ValueError:
+            break
+        chain[-1] = fine_linked
+        chain.append(coarse)
+        cur = coarse
+    return chain[::-1]

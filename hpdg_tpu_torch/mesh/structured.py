@@ -336,6 +336,16 @@ def structured(cells, lower=None, upper=None, mask=None) -> Mesh:
     return from_boxes(lowers, extents)
 
 
+def lshape(n: int) -> Mesh:
+    """L-shaped domain [-1,1]^2 minus the open quadrant (0,1)x(-1,0),
+    with 2n x 2n base cells (the classic re-entrant corner benchmark)."""
+    xs = (np.arange(2 * n) + 0.5) / n - 1.0  # cell centres in (-1, 1)
+    cx, cy = np.meshgrid(xs, xs, indexing="ij")
+    mask = ~((cx > 0) & (cy < 0))
+    return structured((2 * n, 2 * n), lower=(-1.0, -1.0), upper=(1.0, 1.0),
+                      mask=mask)
+
+
 def refine(mesh: Mesh, marks: np.ndarray | None = None) -> Mesh:
     """Uniform (marks=None) refinement: each element splits into 2^dim
     children, renumbered in lattice C order (last axis fastest).  Local

@@ -16,11 +16,11 @@ multigrid_impl).  Two entry points:
   matrices, for hierarchies renewed every outer iteration (TNNMG's
   truncated systems); colored block GS and a block-Jacobi PCG coarse
   solve of fixed length.
-* :func:`matrixfree_multigrid_solver`: the SIPG Laplacian on a full
-  uniform lattice with the stencil (``ops.uniform_stencil``: the CUDA
-  kernel on the card, its plain twin on the CPU) as every non-coarse
-  level's operator, smoothed by vertex patches or block-Jacobi
-  Chebyshev.
+* :func:`matrixfree_multigrid_solver`: the SIPG Laplacian with the
+  sum-factorized apply as every non-coarse level's operator, or, when
+  asked with ``use_kernel``, the uniform stencil (``ops.uniform_stencil``:
+  the CUDA kernel on the card, its plain twin on the CPU), smoothed by
+  vertex patches or block-Jacobi Chebyshev.
 """
 
 from __future__ import annotations
@@ -443,29 +443,45 @@ def parametric_cycle(data: MultigridData, pre_steps: int = 3,
 def matrixfree_multigrid_solver(basis: DGBasis, penalty: float = 2.0,
                                 dirichlet: bool = True,
                                 cheby_degree: int = 3,
+                                use_kernel: bool = False,
                                 meshes: list | None = None,
                                 penalty_scaling: str = "measure",
                                 smoother: str = "cheb",
-                                dtype=torch.float32, device=None):
+                                dtype=torch.float64, device=None):
     """Matrix-free hp-multigrid V-cycle (1+1 sweeps per level) for the
-    SIPG Laplacian on a full uniform lattice.  ``smoother="cheb"``:
-    block-Jacobi-preconditioned Chebyshev of ``cheby_degree``;
-    ``"patch"``: vertex patches with probe-lattice class inverses, on
-    levels whose patch operator has at most ``PATCH_MAX_BLOCK`` dofs
-    (Chebyshev above).  The coarse level is a dense Cholesky up to
+    SIPG Laplacian.
+
+    Every non-coarse level applies the sum-factorized operator
+    (``matrixfree.sumfact.sipg_operator``) in ``dtype``: any box mesh,
+    mixed degrees and hanging faces included.  ``use_kernel=True`` makes
+    every such level apply the uniform stencil (``ops.uniform_stencil``:
+    K1 on the card, its plain twin on CPU tensors) instead; a level K1
+    cannot take (not a full uniform lattice of one degree, or a ``dtype``
+    other than float32 on the card) raises, with no fallback.
+
+    ``smoother="cheb"``: block-Jacobi-preconditioned Chebyshev of
+    ``cheby_degree``; ``"patch"``: vertex patches with probe-lattice
+    class inverses on levels whose patch operator has at most
+    ``PATCH_MAX_BLOCK`` dofs, Chebyshev on the others and where the
+    patches cannot be built.  The coarse level is a dense Cholesky up to
     ``DENSE_COARSE_MAX`` dofs, else 40 colored block-GS steps.
 
     Returns ``(step, info)``: ``step(x, b) -> x`` is one V-cycle;
     ``info`` holds the bases, transfers, levels, and per non-coarse
-    level its operator and smoother.
+    level its operator and smoother (``None`` for Chebyshev).
     """
+    from hpdg_tpu_torch.assemble.plan import build_plan
     from hpdg_tpu_torch.assemble.sipg import assemble_laplace
     from hpdg_tpu_torch.matrixfree.diagonal import sipg_diagonal_blocks
+    from hpdg_tpu_torch.matrixfree.sumfact import sipg_operator
     from hpdg_tpu_torch.ops.uniform_stencil import uniform_stencil_operator
 
     if smoother not in ("cheb", "patch"):
         raise ValueError(smoother)
     device = dev.resolve(device)
+    if use_kernel and device.type == "cuda" and dtype != torch.float32:
+        raise TypeError(f"use_kernel: the stencil kernel takes float32, "
+                        f"not {dtype}")
     bases, transfers = [basis], []
     while bases[0].max_degree() > 1:
         T = p_transfer(bases[0], max(1, bases[0].max_degree() // 2))
@@ -489,18 +505,29 @@ def matrixfree_multigrid_solver(basis: DGBasis, penalty: float = 2.0,
     operators, smoothers = [], []
     for l in range(1, len(bases)):
         bas = bases[l]
-        (pd,) = bas.bucket_degrees
-        op = uniform_stencil_operator(bas, device=device, **kw)
+        if use_kernel:
+            planl = None  # built by the diagonal blocks where needed
+            op = uniform_stencil_operator(bas, device=device, **kw)
+        else:
+            planl = build_plan(bas)
+            op = sipg_operator(bas, plan=planl, dtype=dtype, device=device,
+                               **kw)
         smo = None
-        if smoother == "patch" and \
-                2 ** bas.mesh.dim * (pd + 1) ** bas.mesh.dim <= PATCH_MAX_BLOCK:
-            smo = pat.UniformPatchSmoother(op, bas, penalty,
-                                           dirichlet=dirichlet,
-                                           penalty_scaling=penalty_scaling,
-                                           dtype=dtype, device=device)
+        if smoother == "patch":
+            (pd,) = bas.bucket_degrees
+            if 2 ** bas.mesh.dim * (pd + 1) ** bas.mesh.dim <= PATCH_MAX_BLOCK:
+                try:
+                    smo = pat.UniformPatchSmoother(
+                        op, bas, penalty, dirichlet=dirichlet,
+                        penalty_scaling=penalty_scaling, dtype=dtype,
+                        device=device)
+                except ValueError:
+                    pass  # not a full lattice: Chebyshev below
+        if smo is not None:
             pre, post = smo.forward, smo.backward
         else:
-            D = sipg_diagonal_blocks(bas, dtype=dtype, device=device, **kw)
+            D = sipg_diagonal_blocks(bas, dtype=dtype, plan=planl,
+                                     device=device, **kw)
             Dinv = sm.inverse_diagonal_blocks(D)
             pc = (lambda DD: lambda r: sm.apply_blockdiag(DD, r))(Dinv)
             rho = sm.estimate_rho(op, pc, bv.zeros(bas, dtype=dtype,

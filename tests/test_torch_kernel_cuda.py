@@ -7,7 +7,9 @@ machine with the card but without JAX:
 
 K1 is held against its plain twin (1e-5 of max|y|: f32 sums in another
 order); the CUDA V-cycle against the same cycle on CPU tensors (the twin
-path, f32); the refinement solve on the card is verified to 1e-8.
+path, f32); the refinement solve on the card is verified to 1e-8; the
+matrix-free solver's default route in f64 on the card, and its refusal
+of levels K1 cannot take when asked for the kernel.
 """
 
 import numpy as np
@@ -81,11 +83,13 @@ def test_vcycle_on_card_matches_cpu_twin_path(dev):
     tb = DGBasis(meshes[-1], np.full(meshes[-1].n_elements, 2))
     gstep, info = matrixfree_multigrid_solver(tb, meshes=meshes,
                                               smoother="patch",
+                                              use_kernel=True,
                                               dtype=torch.float32,
                                               device=dev, **KW)
     cstep, _ = matrixfree_multigrid_solver(tb, meshes=meshes,
-                                           smoother="patch",
-                                           dtype=torch.float32, **KW, device=CPU)
+                                           smoother="patch", use_kernel=True,
+                                           dtype=torch.float32, **KW,
+                                           device=CPU)
     rng = np.random.default_rng(6)
     x = {2: rng.standard_normal((216, 27))}
     b = {2: rng.standard_normal((216, 27))}
@@ -102,7 +106,7 @@ def test_refinement_solve_on_card_verifies(dev):
     meshes = tmesh.hierarchy(tmesh.structured((3, 3, 3)), 1)
     tb = DGBasis(meshes[-1], np.full(meshes[-1].n_elements, 2))
     step, _ = matrixfree_multigrid_solver(tb, meshes=meshes,
-                                          smoother="patch",
+                                          smoother="patch", use_kernel=True,
                                           dtype=torch.float32,
                                           device=dev, **KW)
     f = lambda x: torch.sin(np.pi * x[..., 0]) * (1.0 + x[..., 1])  # noqa: E731
@@ -115,3 +119,41 @@ def test_refinement_solve_on_card_verifies(dev):
         max_steps=8, host_residual=lambda x: bv.sub(b_host, A_host(x)))
     assert info["verified"] and info["rel_residual"] <= 1e-8
     assert x64[2].device == dev
+
+
+def test_solve_linear_mf_in_f64_on_card(dev):
+    """``api.solve_linear(method="mf")`` with the f64 matrix and load
+    vector of ``api.laplace``/``api.l2_functional``: the sum-factorized
+    levels in f64 on the card, as the reference's default route."""
+    from hpdg_tpu_torch.blocks import api
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+
+    meshes = tmesh.hierarchy(tmesh.structured((2, 2, 2)), 1)
+    tb = DGBasis(meshes[-1], np.full(meshes[-1].n_elements, 2))
+    A = api.laplace(tb, penalty=2.0, dirichlet=True, device=dev)
+    b = api.l2_functional(tb, lambda x: 1.0 + 0.0 * x[..., 0], device=dev)
+    x, info = api.solve_linear(tb, A, b, tol=1e-10, maxiter=60, meshes=meshes,
+                               method="mf")
+    assert x[2].dtype == torch.float64 and x[2].device == dev
+    r = bv.sub(b, bm.matvec(A, x))
+    assert float(bv.norm(r) / bv.norm(b)) < 1e-8
+    assert info["iterations"] < 60
+
+
+def test_use_kernel_raises_where_k1_cannot_take_a_level(dev):
+    """With ``use_kernel=True`` a level K1 cannot take raises on the
+    card: an f64 cycle, a mesh with hanging faces; no fallback."""
+    from hpdg_tpu_torch.mesh.adaptive import refine_local
+
+    meshes = tmesh.hierarchy(tmesh.structured((2, 2, 2)), 1)
+    tb = DGBasis(meshes[-1], np.full(meshes[-1].n_elements, 2))
+    with pytest.raises(TypeError):
+        matrixfree_multigrid_solver(tb, meshes=meshes, use_kernel=True,
+                                    dtype=torch.float64, device=dev, **KW)
+    m0 = tmesh.structured((3, 3, 3))
+    marks = np.zeros(27, bool)
+    marks[0] = True
+    tl = DGBasis(refine_local(m0, marks), np.full(34, 2))
+    with pytest.raises(ValueError):
+        matrixfree_multigrid_solver(tl, use_kernel=True, dtype=torch.float32,
+                                    device=dev, **KW)

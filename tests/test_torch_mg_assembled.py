@@ -7,9 +7,12 @@
   ``lex``, ``patch``), scalar and vector-valued, with re-assembled coarse
   operators, with the penalty-damped hierarchy, with a dense and a GS
   coarse solve: 1e-11 of max|x|;
-* ``gs_coarse_solver`` at 1e-12;
-* the matrix-free solver with the reference's defaults (block-Jacobi
-  Chebyshev of degree 3) and with a GS coarse level: 1e-11;
+* ``gs_coarse_solver`` at 1e-12; one V-cycle through an h-level made by
+  ``refine_local`` with mixed degrees at 1e-11;
+* the matrix-free solver with the reference's defaults (the
+  sum-factorized apply in f64, block-Jacobi Chebyshev of degree 3), on a
+  ``refine_local`` mesh with mixed degrees, and with a GS coarse level:
+  1e-11;
 * ``loop_solve`` on a small 2D elasticity multigrid: the same iteration
   count and history;
 * the lex-smoothed multigrid with re-assembled levels against a fresh
@@ -203,20 +206,81 @@ def test_loop_solve_on_elasticity_multigrid():
 
 
 def test_matrixfree_defaults_match_reference():
-    """The same call computes the same cycle: block-Jacobi Chebyshev of
-    degree 3 on every level unless the caller asks for patches."""
+    """The same call computes the same cycle: the sum-factorized apply in
+    f64 on every level (the kernel only when asked for), block-Jacobi
+    Chebyshev of degree 3 unless the caller asks for patches."""
+    from hpdg_tpu_torch.matrixfree import sumfact
+
     rsig = inspect.signature(rmg.matrixfree_multigrid_solver).parameters
     tsig = inspect.signature(tmg.matrixfree_multigrid_solver).parameters
     for name in ("penalty", "dirichlet", "cheby_degree", "penalty_scaling",
                  "smoother"):
         assert tsig[name].default == rsig[name].default, name
+    assert tsig["use_kernel"].default is rsig["use_pallas"].default is False
+    assert np.dtype(rsig["dtype"].default) == np.float64
+    assert tsig["dtype"].default is torch.float64
     rms, tms, rb, tb, _, _ = problem("laplace", (2, 3), 2)
     kw = dict(penalty=2.0, penalty_scaling="normal")
-    rstep, _ = rmg.matrixfree_multigrid_solver(rb, meshes=rms,
-                                               dtype=jnp.float64, **kw)
-    tstep, info = tmg.matrixfree_multigrid_solver(
-        tb, meshes=tms, dtype=torch.float64, **kw, device=CPU)
+    rstep, _ = rmg.matrixfree_multigrid_solver(rb, meshes=rms, **kw)
+    tstep, info = tmg.matrixfree_multigrid_solver(tb, meshes=tms, **kw,
+                                                  device=CPU)
     assert info["smoothers"] == [None, None]  # Chebyshev on both levels
+    assert all(op.__qualname__.startswith(sumfact.sipg_operator.__name__)
+               for op in info["operators"])
+    one_cycle(rstep, tstep, rb, 1)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_assembled_cycle_through_refine_local_h_level(dim):
+    """``multigrid_solver(meshes=[structured, refine_local(...)])`` with
+    mixed degrees: the h-transfer takes kept elements (``child_pos ==
+    -1``) and sibling groups alike, and one V-cycle matches the
+    reference's at 1e-11 (the adaptive loop's hierarchy)."""
+    from hpdg_tpu.mesh.adaptive import refine_local as r_refine
+    from hpdg_tpu_torch.mesh.adaptive import refine_local as t_refine
+
+    cells = (4, 3) if dim == 2 else (2, 3, 2)
+    r0, t0 = rmesh.structured(cells), tmesh.structured(cells)
+    marks = np.random.default_rng(21).random(r0.n_elements) < 0.4
+    rm, tm = r_refine(r0, marks), t_refine(t0, marks)
+    assert (tm.child_pos == -1).any() and (tm.child_pos >= 0).any()
+    deg = np.random.default_rng(22).integers(1, 5, rm.n_elements)
+    rb, tb = RBasis(rm, deg), TBasis(tm, deg)
+    RA = r_laplace(rb, **LAPLACE)
+    rstep, rdata = rmg.multigrid_solver(rb, RA, meshes=[r0, rm])
+    tstep, tdata = tmg.multigrid_solver(tb, to_port(RA), meshes=[t0, tm])
+    assert [b.mesh.n_elements for b in tdata.bases] == \
+        [b.mesh.n_elements for b in rdata.bases]
+    one_cycle(rstep, tstep, rb, 1)
+
+
+@pytest.mark.parametrize("dim,smoother", [(2, "cheb"), (2, "patch"),
+                                          (3, "cheb")])
+def test_matrixfree_cycle_on_refine_local_mixed_degrees(dim, smoother):
+    """The default route on a ``refine_local`` mesh with mixed degrees
+    (1-3 in 2D, 1-2 in 3D; hanging faces; kept elements with ``child_pos == -1`` in the h-level)
+    against the reference's default route: one V-cycle at 1e-11.  The
+    patch smoother cannot take such levels; both packages smooth them by
+    Chebyshev (mixed degrees) or fall back to it (hanging faces)."""
+    from hpdg_tpu.mesh.adaptive import refine_local as r_refine
+    from hpdg_tpu_torch.mesh.adaptive import refine_local as t_refine
+
+    cells, pmax = ((3, 4), 3) if dim == 2 else ((2, 2, 2), 2)
+    r0, t0 = rmesh.structured(cells), tmesh.structured(cells)
+    marks = np.random.default_rng(11).random(r0.n_elements) < 0.35
+    rm, tm = r_refine(r0, marks), t_refine(t0, marks)
+    assert (tm.child_pos == -1).any() and (tm.faces.nc_code > 0).any()
+    deg = np.random.default_rng(12).integers(1, pmax + 1, rm.n_elements)
+    if smoother == "patch":
+        deg[:] = 2  # one degree: the patch branch reaches its fallback
+    rb, tb = RBasis(rm, deg), TBasis(tm, deg)
+    kw = dict(penalty=3.0, penalty_scaling="normal", smoother=smoother)
+    rstep, _ = rmg.matrixfree_multigrid_solver(rb, meshes=[r0, rm], **kw)
+    tstep, info = tmg.matrixfree_multigrid_solver(tb, meshes=[t0, tm], **kw,
+                                                  device=CPU)
+    assert [b.mesh.n_elements for b in info["bases"]][:2] == \
+        [t0.n_elements, tm.n_elements]
+    assert all(s is None for s in info["smoothers"])
     one_cycle(rstep, tstep, rb, 1)
 
 

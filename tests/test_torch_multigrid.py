@@ -2,10 +2,10 @@
 
 The reference runs its matrix-free multigrid with ``use_pallas=False``
 (the sum-factorized operator: the same operator as the stencil to f64
-roundoff) and ``smoother="patch"``; the port runs its own level
-operators (the stencil kernel's plain twin on the CPU).  One smoother
-sweep and one V-cycle from the same (x, b) agree to 1e-11, and the
-per-cycle contraction rates to 1e-6.
+roundoff) and ``smoother="patch"``; the port runs the stencil kernel's
+route (``use_kernel=True``: its plain twin on the CPU) and its default,
+sum-factorized route.  One smoother sweep and one V-cycle from the same
+(x, b) agree to 1e-11, and the per-cycle contraction rates to 1e-6.
 """
 
 import jax
@@ -82,22 +82,28 @@ def test_patch_smoother_step_matches_reference(cells, p, reverse):
 
 @pytest.fixture(scope="module")
 def hierarchy():
-    """3^3 -> 6^3 at p=2: levels p2 6^3, p1 6^3, p1 3^3 (coarse)."""
+    """3^3 -> 6^3 at p=2: levels p2 6^3, p1 6^3, p1 3^3 (coarse), the
+    port's cycle by the stencil route (K1's twin on the CPU)."""
     rms = rmesh.hierarchy(rmesh.structured((3, 3, 3)), 1)
     tms = tmesh.hierarchy(tmesh.structured((3, 3, 3)), 1)
     n = rms[-1].n_elements
     rb, tb = RBasis(rms[-1], np.full(n, 2)), TBasis(tms[-1], np.full(n, 2))
     rstep, _ = r_mg(rb, meshes=rms, use_pallas=False, smoother="patch",
                     dtype=jnp.float64, **KW)
-    tstep, info = t_mg(tb, meshes=tms, smoother="patch",
+    tstep, info = t_mg(tb, meshes=tms, smoother="patch", use_kernel=True,
                        dtype=torch.float64, **KW, device=CPU)
-    return rb, tb, jax.jit(rstep), tstep, info
+    return rb, tb, jax.jit(rstep), tstep, info, tms
 
 
-def test_vcycle_matches_reference(hierarchy):
-    rb, tb, rstep, tstep, info = hierarchy
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_vcycle_matches_reference(hierarchy, use_kernel):
+    rb, tb, rstep, tstep, info, tms = hierarchy
+    if not use_kernel:  # the default, sum-factorized route
+        tstep, info = t_mg(tb, meshes=tms, smoother="patch",
+                           dtype=torch.float64, **KW, device=CPU)
     assert [b.mesh.n_elements for b in info["bases"]] == [27, 216, 216]
     assert [b.bucket_degrees for b in info["bases"]] == [(1,), (1,), (2,)]
+    assert all(s is not None for s in info["smoothers"])  # patches
     x, b = _rand(rb, 5), _rand(rb, 6)
     want = rstep({q: jnp.asarray(v) for q, v in x.items()},
                  {q: jnp.asarray(v) for q, v in b.items()})
@@ -107,7 +113,7 @@ def test_vcycle_matches_reference(hierarchy):
 
 
 def test_contraction_rate_matches_reference(hierarchy):
-    rb, tb, rstep, tstep, _ = hierarchy
+    rb, tb, rstep, tstep, _, _ = hierarchy
     b = _rand(rb, 7)
     rop = r_sipg(rb, dtype=jnp.float64, **KW)
     top = uniform_sipg_factorized(tb, dtype=torch.float64, **KW, device=CPU)

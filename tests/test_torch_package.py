@@ -21,7 +21,9 @@ def test_import_leaves_jax_out():
     code = ("import sys; before = set(sys.modules); "
             "import hpdg_tpu_torch, hpdg_tpu_torch.solvers, "
             "hpdg_tpu_torch.ops.uniform_stencil, hpdg_tpu_torch.convert, "
-            "hpdg_tpu_torch.matrixfree, hpdg_tpu_torch.mesh.adaptive; "
+            "hpdg_tpu_torch.matrixfree, hpdg_tpu_torch.mesh.adaptive, "
+            "hpdg_tpu_torch.blocks, hpdg_tpu_torch.estimators, "
+            "hpdg_tpu_torch.examples.adaptive_lshape; "
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'hpdg_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -42,7 +42,7 @@ def solved():
     meshes = tmesh.hierarchy(tmesh.structured((3, 3, 3)), 1)
     basis = TBasis(meshes[-1], np.full(meshes[-1].n_elements, 2))
     step, _ = matrixfree_multigrid_solver(basis, meshes=meshes,
-                                          smoother="patch",
+                                          smoother="patch", use_kernel=True,
                                           dtype=torch.float32, **KW, device=CPU)
     f = lambda x: torch.sin(np.pi * x[..., 0]) * (1.0 + x[..., 1])  # noqa: E731
     b64 = l2_functional(basis, f, device=CPU)
