@@ -70,9 +70,9 @@ Phases (any failure ends the run with a nonzero exit code):
    cycle beside phase 4's;
 11. BASELINE config 5 as ``bench.py:775-817`` builds it: a membrane
    pushed into a lower obstacle on 128^2 at p=3 (262,144 dofs), f64
-   SIPG matrix assembled on the card, ``solve_obstacle_verified`` three
-   times (f32 TNNMG, then the primal-dual active-set loop of f64
-   refinements around f32 parametric V-cycles); every run verified by
+   SIPG matrix assembled on the card, ``solve_obstacle_verified`` twice
+   (f32 TNNMG, then the primal-dual active-set loop of f64 refinements
+   around f32 parametric V-cycles); every run verified by
    host numpy f64: free-dof residual <= 1e-8, feasible, complementarity
    <= 1e-8, a contact zone; per run the seconds of both phases, the
    iterations and truncated dofs; launches, device ms and busy share of
@@ -89,6 +89,38 @@ Phases (any failure ends the run with a nonzero exit code):
    last basis the indicators and error norms on the card against the
    CPU (1e-10), a carried and an unrefined linear function (1e-12), and
    a profiler window of one V-cycle and the peak memory.
+
+13. first-class element geometry, three sub-phases:
+   (a) Poisson on the quarter hollow cylinder ((1+x0) cos(pi x1/2),
+   (1+x0) sin(pi x1/2), x2): an 8^3 lattice of hexes in VTK order through
+   ``from_hex_lattice`` (trilinear corners), refined twice to 32^3
+   elements, p=3 (2,097,152 dofs), penalty 4, "normal", Dirichlet data of
+   u = sin(pi x) sin(pi y) cos(pi z) by ``api.dirichlet_data``: the
+   volume from the mesh, from ``api.mass`` and from ``l2_functional(1)``
+   (1e-12 of each other, 1e-2 of 3 pi / 4); ``sipg_operator`` f64
+   against the assembled A64 (1e-11) and f32 against f64 (1e-5),
+   ``sipg_diagonal_blocks`` against ``extract_diagonal(A64)`` (1e-11);
+   ``api.solve_linear(method="onchip")`` host-verified <= 1e-8 at 16^3
+   and 32^3; the L2 error at 32^3 at most 1/8 of that at 16^3; seconds
+   of set-up, assembly and solve, ms per V-cycle and per apply (CUDA
+   events), launches, device ms and busy share of one V-cycle and one
+   sum-factorized apply (profiler), peak memory;
+   (b) config 4's elasticity problem (24^3, p=2, mu = lam = 1, penalty
+   4, Dirichlet; 1,119,744 dofs) on the same domain by ``isoparametric``
+   on 6^3 refined twice: assembled on the card through the per-point
+   pullback, the matrix-free apply against A64 (1e-11, f32 1e-5), f32 CG
+   preconditioned by the assembled V-cycle inside the f64 refinement,
+   host-verified <= 1e-8; assembly seconds and memory beside phase 8's;
+   (c) an O-grid disk (a 16x16 centre block and four 16x16 outer
+   blocks, four valence-3 singular edges) extruded to 16 layers, 20,480
+   hexes, cells shuffled and each cell's VTK numbering turned (seed 0),
+   through ``from_cell_vertices``, p=2 (552,960 dofs): non-classic face
+   charts, face counts as counted from the blocks, A symmetric (1e-11 of
+   max|A|), ``sipg_operator`` against A (1e-11), block-Jacobi PCG
+   host-verified <= 1e-8, the SIPG energy of a smooth interpolant equal
+   (1e-10) to that of the unshuffled import, and the refusals of
+   ``refine_local``, ``assemble_elasticity`` and
+   ``sipg_diagonal_blocks``; the import's seconds.
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -734,6 +766,7 @@ def elasticity_solve(dev, n_el: int = 24):
     b64 = l2_functional_vec(basis, force, device=dev)
     torch.cuda.synchronize()
     t_asm = time.perf_counter() - t0
+    asm_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     ndof = 3 * basis.ndof
     nblocks = sum(v.shape[0] for v in A64.values.values())
     gb64 = sum(v.numel() * v.element_size() for v in A64.values.values()) / 1e9
@@ -807,6 +840,8 @@ def elasticity_solve(dev, n_el: int = 24):
     if not (res["verified"] and res["rel_residual"] <= 1e-8):
         raise AssertionError(f"elasticity not verified: rel "
                              f"{res['rel_residual']:.3e}")
+    return dict(assembly_s=t_asm, assembly_peak_gb=asm_peak_gb,
+                peak_gb=peak / 1e9)
 
 
 def mf_elasticity_apply(basis, plan, A64, A32, dev):
@@ -1223,6 +1258,422 @@ def adaptive_lshape_loop(dev, n: int = 16, levels: int = 3, steps: int = 6):
           f"(loop {peak})", flush=True)
 
 
+def _peak_gb(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def _sum(x: dict) -> float:
+    return sum(float(v.double().sum()) for v in x.values())
+
+
+def _manufactured(x):
+    """u = sin(pi x) sin(pi y) cos(pi z), -Laplace u = 3 pi^2 u."""
+    return (torch.sin(torch.pi * x[..., 0]) * torch.sin(torch.pi * x[..., 1])
+            * torch.cos(torch.pi * x[..., 2]))
+
+
+def geometry_poisson(dev, n0: int = 8, p: int = 3, vol_tol: float = 1e-2):
+    """Phase 13a: Poisson on the quarter hollow cylinder, imported as a
+    lattice of hexes in VTK order, refined twice (n0^3 -> (4 n0)^3
+    trilinear elements), degree ``p``, penalty 4, "normal" scaling,
+    Dirichlet data of a manufactured solution.  ``vol_tol``: how close
+    the polygonal domain's volume must come to 3 pi / 4 (a small-size
+    rehearsal needs more room than the 32 chords per arc of the run)."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.assemble import build_plan
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.blocks import api
+    from hpdg_tpu_torch.estimators.error import l2_error
+    from hpdg_tpu_torch.examples import meshes as gen
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.matrixfree.diagonal import sipg_diagonal_blocks
+    from hpdg_tpu_torch.matrixfree.sumfact import sipg_operator
+    from hpdg_tpu_torch.mesh import geometry as geo
+    from hpdg_tpu_torch.solvers.multigrid import multigrid_solver
+
+    kw = dict(penalty=4.0, dirichlet=True, penalty_scaling="normal")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pts, cells = gen.mapped_lattice((n0,) * 3, gen.cylinder_quarter)
+    base = geo.from_hex_lattice(pts, cells, (n0,) * 3)
+    if base.corners is None:
+        raise AssertionError("geometry: the cylinder imported as affine")
+    chain = [base, hm.refine(base)]
+    chain.append(hm.refine(chain[-1]))
+    t_mesh = time.perf_counter() - t0
+
+    def problem(meshes):
+        """Assemble and solve on ``meshes[-1]`` with the h-levels below
+        it; host-clock seconds after a device sync."""
+        m = meshes[-1]
+        basis = DGBasis(m, np.full(m.n_elements, p, dtype=np.int32))
+        t0 = time.perf_counter()
+        plan = build_plan(basis)
+        t_plan = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        A = api.laplace(basis, plan=plan, device=dev, **kw)
+        torch.cuda.synchronize()
+        t_asm = time.perf_counter() - t0
+        asm_gb = _peak_gb(dev)
+        t0 = time.perf_counter()
+        b = api.l2_functional(
+            basis, lambda x: 3.0 * torch.pi ** 2 * _manufactured(x),
+            quad_order=2 * p + 4, device=dev)
+        bd = api.dirichlet_data(basis, _manufactured, penalty=4.0, plan=plan,
+                                penalty_scaling="normal", device=dev)
+        b = {q: b[q] + bd[q] for q in b}
+        torch.cuda.synchronize()
+        t_rhs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the GS-smoothed p3 -> p1 cycle contracts by about 0.8, on the
+        # box as on the cylinder: room for 50 steps of 8 cycles
+        x, info = api.solve_linear(basis, A, b, tol=1e-8, maxiter=400,
+                                   meshes=meshes, method="onchip")
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t0
+        err = float(l2_error(basis, x, _manufactured))
+        n1 = round(m.n_elements ** (1 / 3))
+        print(f"geometry 13a {n1}^3 p={p}: dofs={basis.ndof} "
+              f"plan_s={t_plan:.2f} card_assembly_s={t_asm:.2f} "
+              f"(peak {asm_gb:.2f} GB) rhs_s={t_rhs:.2f} "
+              f"solver_setup_s={t_all - info['seconds']:.2f} "
+              f"solve_s={info['seconds']:.3f} steps={info['steps']} "
+              f"vcycles={info['cycles']} "
+              f"host_verified_rel_residual={info['rel_residual']:.3e} "
+              f"l2_error={err:.6e}", flush=True)
+        if not (info["verified"] and info["rel_residual"] <= 1e-8):
+            raise AssertionError(f"geometry 13a {n1}^3 not verified: rel "
+                                 f"{info['rel_residual']:.3e}")
+        if not all(bool(torch.isfinite(v).all()) for v in x.values()):
+            raise AssertionError("geometry 13a: non-finite solution")
+        return basis, plan, A, b, x, err
+
+    _, _, _, _, _, err_coarse = problem(chain[:2])
+    basis, plan, A64, b64, x64, err_fine = problem(chain)
+    m = basis.mesh
+    ndof = basis.ndof
+    nblocks = sum(v.shape[0] for v in A64.values.values())
+    gb64 = sum(v.numel() * v.element_size() for v in A64.values.values()) / 1e9
+    print(f"geometry 13a mesh: import+2 refinements {t_mesh:.2f} s, "
+          f"{m.n_elements} trilinear elements, dofs={ndof} blocks={nblocks} "
+          f"A64_GB={gb64:.3f}", flush=True)
+    if ndof != (4 * n0) ** 3 * (p + 1) ** 3:  # 2,097,152 at 32^3 p=3
+        raise AssertionError(f"geometry 13a: {ndof} dofs")
+
+    # (i) three routes to the volume
+    vol = float(m.volumes.sum())
+    one = {q: torch.ones_like(v) for q, v in b64.items()}
+    M1 = bm.matvec(api.mass(basis, device=dev), one)
+    vol_m = sum(float((one[q] * M1[q]).sum()) for q in one)
+    vol_l = _sum(api.l2_functional(
+        basis, lambda x: torch.ones_like(x[..., 0]), device=dev))
+    exact = 0.75 * np.pi
+    print(f"geometry 13a volume: mesh={vol:.12f} 1^T M 1={vol_m:.12f} "
+          f"sum l2_functional(1)={vol_l:.12f} exact={exact:.12f} "
+          f"(rel {abs(vol - exact) / exact:.3e})", flush=True)
+    if not (abs(vol_m - vol) <= 1e-12 * vol and abs(vol_l - vol) <= 1e-12 * vol
+            and abs(vol - exact) <= vol_tol * exact):
+        raise AssertionError("geometry 13a: the volumes disagree")
+
+    # (ii) matrix-free routes against the assembled matrix
+    t0 = time.perf_counter()
+    op64 = sipg_operator(basis, plan=plan, dtype=torch.float64, device=dev,
+                         **kw)
+    op32 = sipg_operator(basis, plan=plan, dtype=torch.float32, device=dev,
+                         **kw)
+    torch.cuda.synchronize()
+    t_ops = time.perf_counter() - t0
+    gen_ = torch.Generator(device=dev).manual_seed(1887)
+    v64 = {q: torch.randn(tuple(b64[q].shape), generator=gen_,
+                          dtype=torch.float64, device=dev) for q in b64}
+    v32 = {q: v.float() for q, v in v64.items()}
+    y64 = op64(v64)
+    check_rel("geometry 13a sumfact-f64 vs assembled A64",
+              bm.matvec(A64, v64), y64, 1e-11)
+    check_rel("geometry 13a sumfact-f32 vs sumfact-f64", y64, op32(v32),
+              TOL_KERNEL)
+    t0 = time.perf_counter()
+    D = sipg_diagonal_blocks(basis, plan=plan, device=dev, **kw)
+    torch.cuda.synchronize()
+    t_diag = time.perf_counter() - t0
+    check_rel("geometry 13a diagonal blocks vs extract_diagonal(A64)",
+              bm.extract_diagonal(A64), D, 1e-11)
+    del D
+
+    # (iv) convergence under refinement
+    ratio = err_coarse / err_fine
+    print(f"geometry 13a l2_error {2 * n0}^3 -> {4 * n0}^3: "
+          f"{err_coarse:.6e} -> {err_fine:.6e}, ratio {ratio:.2f} "
+          f"(theory {2 ** (p + 1)})", flush=True)
+    if not ratio >= 2.0 ** p:  # half the theoretical rate: 8 at p=3
+        raise AssertionError(f"geometry 13a: error ratio {ratio:.2f} < "
+                             f"{2 ** p}")
+
+    # (v) one V-cycle and one sum-factorized apply under the profiler
+    A32 = bm.BlockSparseMatrix(A64.pattern, A64.dim,
+                               {k: v.float() for k, v in A64.values.items()},
+                               A64.block_shape)
+    step, data = multigrid_solver(basis, A32, meshes=chain,
+                                  dtype=torch.float32)
+    b32 = {q: v.float() for q, v in b64.items()}
+    x0 = bv.zeros_like(b32)
+    t_cycle = float(np.median(event_times(lambda: step(x0, b32), 3)))
+    t_apply = {tag: float(np.median(event_times(fn, 10))) for tag, fn in (
+        ("sumfact-f64", lambda: op64(v64)), ("sumfact-f32", lambda: op32(v32)),
+        ("spmv-f64", lambda: bm.matvec(A64, v64)),
+        ("spmv-f32", lambda: bm.matvec(A32, v32)))}
+    levels = " ".join(f"{bas.mesh.n_elements}e/p{bas.bucket_degrees[0]}"
+                      for bas in data.bases)
+    print(f"geometry 13a hierarchy=[{levels}] smoothers={data.smoothers} "
+          f"coarse={data.coarse} ms_per_vcycle={t_cycle:.3f} "
+          f"operator_build_s={t_ops:.2f} diagonal_blocks_s={t_diag:.2f} "
+          f"median_ms_per_apply "
+          + " ".join(f"{k}={v:.4f}" for k, v in t_apply.items())
+          + f" peak_mem_GB={_peak_gb(dev):.2f}", flush=True)
+    for tag, fn, unit in (("geometry 13a V-cycle", lambda: step(x0, b32),
+                           "cycle"),
+                          ("geometry 13a sumfact-f32 apply",
+                           lambda: op32(v32), "apply")):
+        prof = profile_apply(fn, reps=2 if unit == "cycle" else 5)
+        print_profile(tag, prof, unit=unit)
+        if prof is not None:
+            print(f"{tag}: wall {prof['wall_ms']:.3f} ms/{unit}, busy share "
+                  f"{prof['device_ms'] / prof['wall_ms']:.3f}", flush=True)
+
+
+def geometry_elasticity(dev, n_el: int = 24, box: dict | None = None):
+    """Phase 13b: config 4's elasticity problem on the quarter hollow
+    cylinder (``isoparametric`` on (n_el/4)^3, refined twice), assembled
+    on the card through the per-point pullback and solved inside the
+    f64 refinement by f32 CG preconditioned with one V-cycle of the
+    assembled hierarchy.  (Curved cells have no translation classes, the
+    per-patch inverses of the two finest levels pass the patch memory
+    budget, and colored block GS alone contracts by only ~0.9 per cycle
+    under this penalty: so the cycle preconditions CG here.)  ``box``
+    holds phase 8's numbers of the same run."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.assemble import (assemble_elasticity, build_plan,
+                                         l2_functional_vec)
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.examples.meshes import cylinder_quarter
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.mesh import geometry as geo
+    from hpdg_tpu_torch.solvers.cg import pcg
+    from hpdg_tpu_torch.solvers.multigrid import multigrid_solver
+    from hpdg_tpu_torch.solvers.refine import refinement_solve
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    chain = [geo.isoparametric(hm.structured((n_el // 4,) * 3),
+                               cylinder_quarter)]
+    for _ in range(2):
+        chain.append(hm.refine(chain[-1]))
+    mf = chain[-1]
+    basis = DGBasis(mf, np.full(mf.n_elements, 2, dtype=np.int32))
+    plan = build_plan(basis)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A64 = assemble_elasticity(basis, mu=1.0, lam=1.0, penalty=4.0,
+                              dirichlet=True, plan=plan, device=dev)
+    force = lambda x: torch.stack(  # noqa: E731
+        [3 * np.pi ** 2 * torch.sin(np.pi * x[..., 0])
+         * torch.sin(np.pi * x[..., 1]) * torch.sin(np.pi * x[..., 2]),
+         torch.zeros_like(x[..., 0]), torch.zeros_like(x[..., 0])], dim=-1)
+    b64 = l2_functional_vec(basis, force, device=dev)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    asm_gb = _peak_gb(dev)
+    ndof = 3 * basis.ndof
+    gb64 = sum(v.numel() * v.element_size() for v in A64.values.values()) / 1e9
+    print(f"geometry 13b elasticity {n_el}^3 p=2 on the quarter cylinder: "
+          f"dofs={ndof} A64_GB={gb64:.3f} host_setup_s={t_host:.2f} "
+          f"card_assembly_s={t_asm:.2f} assembly_peak_GB={asm_gb:.2f}"
+          + (f" | box (phase 8): card_assembly_s={box['assembly_s']:.2f} "
+             f"assembly_peak_GB={box['assembly_peak_gb']:.2f}" if box else ""),
+          flush=True)
+    if ndof != 81 * n_el ** 3:  # 1,119,744 at 24^3
+        raise AssertionError(f"geometry 13b: {ndof} dofs")
+    A32 = bm.BlockSparseMatrix(A64.pattern, A64.dim,
+                               {k: v.float() for k, v in A64.values.items()},
+                               A64.block_shape)
+    mf_elasticity_apply(basis, plan, A64, A32, dev)
+
+    t0 = time.perf_counter()
+    cycle, data = multigrid_solver(basis, A32, meshes=chain,
+                                   dtype=torch.float32)
+    torch.cuda.synchronize()
+    t_mg = time.perf_counter() - t0
+    cg_its = 24
+
+    def step(c, r):
+        """``cg_its`` iterations of f32 CG on A32, one V-cycle (from
+        zero) as its preconditioner."""
+        return pcg(lambda v: bm.matvec(A32, v), r, x0=c,
+                   precond=lambda z: cycle(bv.zeros_like(z), z), tol=0.0,
+                   maxiter=cg_its)[0]
+
+    levels = " ".join(f"{b.mesh.n_elements}e/p{b.bucket_degrees[0]}"
+                      for b in data.bases)
+    keys = sorted(b64)
+    vals_host = {k: v.cpu().numpy() for k, v in A64.values.items()}
+    b_host = {k: b64[k].cpu().numpy() for k in keys}
+
+    def host_residual(x):
+        Ax = host_matvec(A64.pattern, vals_host,
+                         {k: v.numpy() for k, v in x.items()})
+        return {k: torch.from_numpy(b_host[k] - Ax[k]) for k in keys}
+
+    x64, res = refinement_solve(
+        step, lambda x: bv.sub(b64, bm.matvec(A64, x)), b64, chain_k=1,
+        tol=1e-8, max_steps=12, host_residual=host_residual)
+    b32 = {k: v.float() for k, v in b64.items()}
+    x0 = bv.zeros_like(b32)
+    t_cycle = float(np.median(event_times(lambda: cycle(x0, b32), 3)))
+    print(f"geometry 13b hierarchy=[{levels}] smoothers={data.smoothers} "
+          f"coarse={data.coarse} solver_setup_s={t_mg:.2f} "
+          f"steps={res['steps']} cg_iterations={cg_its * res['cycles']} "
+          f"(one V-cycle each, {cg_its} per step) "
+          f"history={['%.3e' % h for h in res['history']]} "
+          f"host_verified_rel_residual={res['rel_residual']:.3e} "
+          f"solve_s={res['seconds']:.3f} ms_per_vcycle={t_cycle:.3f} "
+          f"peak_mem_GB={_peak_gb(dev):.2f}"
+          + (f" | box (phase 8): peak_mem_GB={box['peak_gb']:.2f}"
+             if box else ""), flush=True)
+    if not all(bool(torch.isfinite(v).all()) for v in x64.values()):
+        raise AssertionError("geometry 13b: non-finite solution")
+    if not (res["verified"] and res["rel_residual"] <= 1e-8):
+        raise AssertionError(f"geometry 13b not verified: rel "
+                             f"{res['rel_residual']:.3e}")
+
+
+def geometry_import(dev, nb: int = 16, layers: int = 16, p: int = 2):
+    """Phase 13c: an O-grid disk extruded to hexes, cells shuffled and
+    each cell's VTK numbering turned, imported by ``from_cell_vertices``
+    (twisted face charts), assembled and solved on the card."""
+    from hpdg_tpu_torch.assemble import (assemble_elasticity,
+                                         assemble_laplace, build_plan,
+                                         l2_functional)
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.examples import meshes as gen
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.matrixfree.diagonal import sipg_diagonal_blocks
+    from hpdg_tpu_torch.matrixfree.sumfact import sipg_operator
+    from hpdg_tpu_torch.mesh import geometry as geo
+    from hpdg_tpu_torch.mesh.adaptive import refine_local
+    from hpdg_tpu_torch.solvers import smoothers as sm
+    from hpdg_tpu_torch.solvers.cg import pcg
+
+    kw = dict(penalty=4.0, dirichlet=True, penalty_scaling="normal")
+    torch.cuda.reset_peak_memory_stats(dev)
+    pts, cells, (n_int, n_bnd) = gen.ogrid_cylinder(nb, layers)
+    scrambled = gen.shuffle_and_rotate(cells, np.random.default_rng(0))
+    t0 = time.perf_counter()
+    m = geo.from_cell_vertices(pts, scrambled)
+    t_import = time.perf_counter() - t0
+    basis = DGBasis(m, np.full(m.n_elements, p, dtype=np.int32))
+    f = m.faces
+    odd = ((f.in_side != 1) | (f.out_side != 0) | (f.out_axis != f.axis)
+           | (f.twist != 0))
+    print(f"geometry 13c O-grid {nb}x{nb} blocks x {layers} layers: "
+          f"{m.n_elements} hexes, dofs={basis.ndof}, import_s={t_import:.2f}, "
+          f"faces={len(m.faces)} (blocks: {n_int}) bfaces={len(m.bfaces)} "
+          f"(blocks: {n_bnd}), non-classic faces={int(odd.sum())}, "
+          f"trilinear={m.corners is not None}", flush=True)
+    if m.faces.is_classic:
+        raise AssertionError("geometry 13c: the O-grid imported classic")
+    if (len(m.faces), len(m.bfaces)) != (n_int, n_bnd) \
+            or m.n_elements != 5 * nb * nb * layers:
+        raise AssertionError("geometry 13c: face counts differ from the "
+                             "blocks'")
+
+    def energy(bas, A):
+        xp = torch.as_tensor(bas.node_positions(p), device=dev)
+        u = {p: torch.sin(xp[..., 0] + 0.3) * torch.cos(0.7 * xp[..., 1])
+             * (1.0 + 0.2 * xp[..., 2])}
+        return sum(float((u[q] * v).sum()) for q, v in bm.matvec(A, u).items())
+
+    t0 = time.perf_counter()
+    plan = build_plan(basis)
+    A = assemble_laplace(basis, plan=plan, device=dev, **kw)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    amax = max(float(v.abs().max()) for v in A.values.values())
+    gen_ = torch.Generator(device=dev).manual_seed(1887)
+    v = {p: torch.randn((basis.bucket_size(p), basis.n_local(p)),
+                        generator=gen_, dtype=torch.float64, device=dev)}
+    # symmetry block by block: the (c, r) block is the (r, c) block's
+    # transpose
+    rows, cols = A.pattern.entries[(p, p)]
+    slot = {(int(r), int(c)): k for k, (r, c) in enumerate(zip(rows, cols))}
+    mirror = torch.as_tensor([slot[(int(c), int(r))]
+                              for r, c in zip(rows, cols)], device=dev)
+    vals = A.values[(p, p)]
+    asym = float((vals - vals[mirror].transpose(1, 2)).abs().max())
+    print(f"geometry 13c assembly: plan+assemble_s={t_asm:.2f} "
+          f"blocks={vals.shape[0]} max|A|={amax:.4e} "
+          f"max|A - A^T|={asym:.3e} peak_mem_GB={_peak_gb(dev):.2f}",
+          flush=True)
+    if not asym <= 1e-11 * amax:
+        raise AssertionError(f"geometry 13c: A not symmetric ({asym:.3e})")
+    op = sipg_operator(basis, plan=plan, device=dev, **kw)
+    check_rel("geometry 13c sumfact-f64 vs assembled A", bm.matvec(A, v),
+              op(v), 1e-11)
+
+    b = l2_functional(basis, lambda x: torch.ones_like(x[..., 0]),
+                      device=dev)
+    t0 = time.perf_counter()
+    x, info = pcg(lambda z: bm.matvec(A, z), b,
+                  precond=sm.block_jacobi_preconditioner(A), tol=1e-9,
+                  maxiter=4000)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    vals_host = {k: t.cpu().numpy() for k, t in A.values.items()}
+    Ax = host_matvec(A.pattern, vals_host,
+                     {k: t.cpu().numpy() for k, t in x.items()})
+    b_host = {k: t.cpu().numpy() for k, t in b.items()}
+    rel = float(np.sqrt(sum(((b_host[k] - Ax[k]) ** 2).sum() for k in Ax))
+                / np.sqrt(sum((t ** 2).sum() for t in b_host.values())))
+    print(f"geometry 13c block-Jacobi PCG: iterations={info['iterations']} "
+          f"solve_s={t_solve:.2f} host_verified_rel_residual={rel:.3e}",
+          flush=True)
+    if not (rel <= 1e-8 and all(bool(torch.isfinite(t).all())
+                                for t in x.values())):
+        raise AssertionError(f"geometry 13c not verified: rel {rel:.3e}")
+
+    e_scr = energy(basis, A)
+    del A, vals, vals_host
+    m0 = geo.from_cell_vertices(pts, cells)
+    b0 = DGBasis(m0, np.full(m0.n_elements, p, dtype=np.int32))
+    e_ref = energy(b0, assemble_laplace(b0, device=dev, **kw))
+    print(f"geometry 13c energy of a smooth interpolant: scrambled "
+          f"{e_scr:.12e}, lattice-ordered {e_ref:.12e}, rel "
+          f"{abs(e_scr - e_ref) / abs(e_ref):.3e}", flush=True)
+    if not abs(e_scr - e_ref) <= 1e-10 * abs(e_ref):
+        raise AssertionError("geometry 13c: the energy depends on the "
+                             "cell order")
+
+    marks = np.zeros(m.n_elements, bool)
+    marks[0] = True
+    for tag, call, exc in (
+            ("refine_local", lambda: refine_local(m, marks), ValueError),
+            ("assemble_elasticity",
+             lambda: assemble_elasticity(basis, device=dev),
+             NotImplementedError),
+            ("sipg_diagonal_blocks",
+             lambda: sipg_diagonal_blocks(basis, device=dev),
+             NotImplementedError)):
+        try:
+            call()
+        except exc as e:
+            print(f"geometry 13c {tag} refuses: {type(e).__name__}: "
+                  f"{str(e)[:70]}...", flush=True)
+        else:
+            raise AssertionError(f"geometry 13c: {tag} did not refuse")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1272,7 +1723,7 @@ def main() -> int:
     hp_solve(dev)
 
     # ---- phases 8-9: the assembled hp-multigrid ----
-    elasticity_solve(dev)
+    box = elasticity_solve(dev)
     lex_parity(dev)
 
     # ---- phase 10: the matrix-free solve smoothed by Chebyshev ----
@@ -1285,10 +1736,15 @@ def main() -> int:
           f"{cheb['first']:.3e}", flush=True)
 
     # ---- phase 11: the obstacle problem (config 5) ----
-    obstacle_solve(dev)
+    obstacle_solve(dev, n_runs=2)  # two runs, not the bench's three: time
 
     # ---- phase 12: the hp-adaptive L-shape (config 3) ----
     adaptive_lshape_loop(dev)
+
+    # ---- phase 13: first-class element geometry ----
+    geometry_poisson(dev)
+    geometry_elasticity(dev, box=box)
+    geometry_import(dev)
 
     if "jax" in sys.modules or "hpdg_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hpdg_tpu")

@@ -58,6 +58,31 @@ class FaceGroup:
         m = tuple((0.5 * b, 0.5) for b in bits)
         return (None, m) if coarse_out else (m, None)
 
+    def twist_map(self, pts: np.ndarray) -> np.ndarray:
+        """Outside-chart tangential coordinates of the inside-chart
+        face points ``pts`` (nq, dim-1) under this group's twist code
+        (Faces.twist encoding)."""
+        return apply_twist(pts, self.twist)
+
+
+def apply_twist(pts: np.ndarray, twist: int) -> np.ndarray:
+    """v = g(u) for the Faces.twist isometry encoding: 2D flip in {0,1};
+    3D ``swap*4 + flip1*2 + flip0`` (swap tangential axes first, then
+    per-axis flips t -> 1-t)."""
+    pts = np.asarray(pts)
+    nt = pts.shape[1]
+    if twist == 0:
+        return pts
+    if nt == 1:
+        return 1.0 - pts if twist else pts
+    swap, fl1, fl0 = (twist >> 2) & 1, (twist >> 1) & 1, twist & 1
+    w = pts[:, ::-1] if swap else pts
+    out = np.empty_like(w)
+    out[:, 0] = 1.0 - w[:, 0] if fl0 else w[:, 0]
+    out[:, 1] = 1.0 - w[:, 1] if fl1 else w[:, 1]
+    return out
+
+
 
 @dataclass(frozen=True)
 class BoundaryGroup:
@@ -189,40 +214,101 @@ def build_plan(basis: DGBasis) -> AssemblyPlan:
 
 def face_group_tables(basis, fg: FaceGroup, nq1: int):
     """Trace tables for both sides of a face group, with the hanging-node
-    sub-face mapping applied to the coarse side (if any).  ``Dn`` is the
-    reference normal derivative along +e_axis on both sides (classic
-    face charts; twisted charts of imported meshes wait for the
-    geometry item of ROADMAP queue 1)."""
-    if fg.twist != 0 or fg.in_side != 1 or fg.out_side != 0 \
-            or fg.out_axis != fg.axis:
-        raise NotImplementedError(
-            "twisted face charts: ROADMAP queue 1, item 19 (geometry)")
+    sub-face mapping applied to the coarse side (if any).
+
+    Generalized face charts (twisted unstructured imports): the inside
+    tables come from face (axis, in_side), the outside tables from
+    (out_axis, out_side) with the twist isometry applied as a
+    quadrature-point permutation (tensor Gauss rules are closed under
+    the face isometries), so column q of BOTH tables refers to the same
+    physical point.  ``Dn`` is returned SIGNED along the shared normal
+    (pointing inside -> outside) in each element's own chart — the
+    classic contract (in high / out low, same axis) keeps both signs +1
+    and the tables bit-identical to before.
+    """
     dim = basis.mesh.dim
     tm_in, tm_out = fg.tang_maps(dim)
-    fin = tensor.face_tables(fg.p_in, dim, fg.axis, 1, nq1,
+    if fg.nc_code != 0 and fg.twist != 0:
+        raise NotImplementedError("hanging-node faces with twisted "
+                                  "charts cannot arise from 2:1 "
+                                  "refinement of imported meshes")
+    fin = tensor.face_tables(fg.p_in, dim, fg.axis, fg.in_side, nq1,
                              family=basis.family, tang_map=tm_in)
-    fout = tensor.face_tables(fg.p_out, dim, fg.out_axis, 0, nq1,
-                              family=basis.family, tang_map=tm_out)
+    fout = tensor.face_tables(fg.p_out, dim, fg.out_axis, fg.out_side,
+                              nq1, family=basis.family, tang_map=tm_out)
+    if fg.twist != 0:
+        fout = dict(fout)
+        pts = fin["points"]
+        mapped = fg.twist_map(pts)
+        # the tensor rule is closed under the isometry: find the exact
+        # column permutation realizing it
+        d2 = ((mapped[:, None, :] - fout["points"][None, :, :]) ** 2
+              ).sum(-1)
+        qmap = d2.argmin(axis=1)
+        if not (np.sqrt(d2[np.arange(len(qmap)), qmap]) < 1e-12).all() \
+                or len(set(int(q) for q in qmap)) != len(qmap):
+            raise AssertionError("face quadrature not closed under the "
+                                 "twist isometry")
+        for name in ("V", "Dn"):
+            fout[name] = fout[name][..., qmap]
+        fout["Dall"] = fout["Dall"][..., qmap]
+        fout["points"] = mapped
+    sgn_in = 2 * fg.in_side - 1
+    sgn_out = 1 - 2 * fg.out_side
+    if sgn_in < 0:
+        fin = dict(fin)
+        fin["Dn"] = sgn_in * fin["Dn"]
+    if sgn_out < 0:
+        fout = dict(fout)
+        fout["Dn"] = sgn_out * fout["Dn"]
     return fin, fout
 
 
-def face_phys_points(basis, fg: FaceGroup, pts: np.ndarray) -> np.ndarray:
+def face_phys_points(basis, fg: FaceGroup, pts: np.ndarray,
+                     side: str = "in") -> np.ndarray:
     """Parametric quadrature points of a face group, on the intersection
     (= the fine face for non-conforming pairs).  (nf, nq, dim).
 
-    Box meshes share one global parametric chart, so the same point
-    array serves both sides (per-element charts of imported meshes come
-    with ROADMAP queue 1, item 19)."""
+    Lattice-style meshes share one global parametric chart, so the same
+    point array serves both sides.  Meshes with PER-ELEMENT charts
+    (geometry.from_cell_vertices: disjoint unit boxes, faces paired at
+    identity tangential correspondence) need the point expressed in the
+    requested side's own chart — ``side`` picks "in" or "out" for those
+    faces (conforming only; hanging nodes always live on shared
+    charts)."""
     mesh = basis.mesh
+    dim = mesh.dim
     ein = mesh.faces.inside[fg.face_ids]
     eout = mesh.faces.outside[fg.face_ids]
     lo = np.maximum(mesh.lower[ein], mesh.lower[eout])
     ext = np.minimum(mesh.extent[ein], mesh.extent[eout])
     lo[:, fg.axis] = mesh.lower[eout][:, fg.axis]  # the face plane
-    x = np.repeat(lo[:, None, :], len(pts), axis=1)
-    tang = [a for a in range(mesh.dim) if a != fg.axis]
+    nq = len(pts)
+    x = np.repeat(lo[:, None, :], nq, axis=1)
+    tang = [a for a in range(dim) if a != fg.axis]
     for t, a in enumerate(tang):
         x[:, :, a] += pts[None, :, t] * ext[:, a][:, None]
+    # per-element-chart faces: parametrically non-adjacent pairs
+    adj = np.abs(mesh.lower[ein][:, fg.axis]
+                 + mesh.extent[ein][:, fg.axis]
+                 - mesh.lower[eout][:, fg.axis]) \
+        <= 1e-9 * np.maximum(1.0, mesh.extent[ein][:, fg.axis])
+    if not adj.all():
+        if fg.nc_code != 0:
+            raise ValueError("hanging-node faces need a shared "
+                             "parametric chart")
+        if side == "in":
+            e, ax2, sd2, tpts = ein, fg.axis, fg.in_side, pts
+        else:
+            e, ax2, sd2 = eout, fg.out_axis, fg.out_side
+            tpts = fg.twist_map(pts)
+        nlo = mesh.lower[e].copy()
+        next_ = mesh.extent[e]
+        xn = np.repeat(nlo[:, None, :], nq, axis=1)
+        xn[:, :, ax2] += sd2 * next_[:, ax2][:, None]
+        for t, a in enumerate(aa for aa in range(dim) if aa != ax2):
+            xn[:, :, a] += tpts[None, :, t] * next_[:, a][:, None]
+        x = np.where(adj[:, None, None], x, xn)
     return x
 
 

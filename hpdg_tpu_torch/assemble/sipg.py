@@ -1,4 +1,4 @@
-"""Batched SIPG stiffness assembly on box meshes.
+"""Batched SIPG stiffness assembly.
 
 Port of ``hpdg_tpu.assemble.sipg``:
 
@@ -9,14 +9,15 @@ Port of ``hpdg_tpu.assemble.sipg``:
   one GEMM ``coef [nblocks, K] @ D [K, br*bc]`` (:class:`_DictBuilder`),
   or its unmultiplied factors with ``coef_parts=True``
   (:class:`_CoefBuilder`, consumed by ``matrixfree.dedup``);
-* a scalar or tensor ``diffusion`` takes the per-quadrature-point
-  einsums of :class:`_ValueBuilder`.
+* a scalar or tensor ``diffusion``, and every mesh with first-class
+  geometry (affine ``jac`` or trilinear ``corners``, which fold into an
+  effective per-point tensor ``|det J| J^-1 K J^-T``, see
+  ``mesh/geometry.py``), takes the per-quadrature-point einsums.
 
 Conventions match the reference exactly: Gauss-Lobatto quadrature of
 DUNE order 2*max(p), [u] = u_in - u_out, normal inside -> outside,
 Dirichlet boundary terms with full (not halved) consistency weights.
-Affine/trilinear geometry waits for ROADMAP queue 1, item 19, and
-``geom_scale`` for item 13.
+``geom_scale`` waits for ROADMAP queue 1, item 13.
 """
 
 from __future__ import annotations
@@ -32,6 +33,38 @@ from hpdg_tpu_torch.assemble.plan import (AssemblyPlan, build_plan,
                                           face_group_tables, face_phys_points,
                                           penalty_coef, boundary_penalty_coef)
 from hpdg_tpu_torch.linalg.blockmatrix import BlockSparseMatrix
+from hpdg_tpu_torch.mesh import geometry as geo
+
+# Upper bound on the bytes of one per-point intermediate of the
+# per-point assembly ([e, q, a, j] in the bulk): larger batches are cut
+# into element chunks, which leaves every block's sum as it is.
+CHUNK_BYTES = 1 << 30
+
+
+def chunked_over_elements(fn, n: int, row_bytes: int, *tensors):
+    """``fn(*[t[lo:hi] for t in tensors])`` over element chunks whose
+    intermediate (``row_bytes`` per element) stays under
+    :data:`CHUNK_BYTES`, concatenated.  One call when it all fits."""
+    step = max(1, CHUNK_BYTES // max(1, row_bytes))
+    if n <= step:
+        return fn(*tensors)
+    return torch.cat([fn(*[t[lo:lo + step] for t in tensors])
+                      for lo in range(0, n, step)])
+
+
+def bulk_tensor_blocks(kc, G):
+    """``sum_{q,a,b} G[a,i,q] kc[e,q,a,b] G[b,j,q]`` -> ``[e, i, j]``,
+    contracted K.G first so the largest intermediate is ``[e, q, a, j]``
+    (never ``[e, q, i, j]``), in element chunks."""
+    n, nq, d, _ = kc.shape
+    nl = G.shape[1]
+
+    def one(kc_):
+        T = torch.einsum("eqab,bjq->eqaj", kc_, G)
+        return torch.einsum("aiq,eqaj->eij", G, T)
+
+    return chunked_over_elements(one, n, nq * d * nl * kc.element_size(),
+                                 kc)
 
 
 def dg_theta(dg_form) -> float:
@@ -48,21 +81,6 @@ def is_tensor_coefficient(diffusion, dim: int, dtype, device) -> bool:
         return False
     probe = diffusion(torch.full((1, dim), 0.5, dtype=dtype, device=device))
     return probe.dim() >= 3
-
-
-def grad_jump_geometry(mesh, fg, nq: int):
-    """Box-mesh form of the sigma1 gradient-jump geometry
-    (``hpdg_tpu.mesh.geometry.face_grad_jump_geometry`` with identity
-    Jacobians): ``sn[f, q, b] = e_axis[b] / h[b]`` per side and
-    ``zs[f, q] = |f|``."""
-    ein = mesh.faces.inside[fg.face_ids]
-    eout = mesh.faces.outside[fg.face_ids]
-    e_ax = np.eye(mesh.dim)[fg.axis]
-    ones = np.ones((1, nq, 1))
-    sn_in = (e_ax / mesh.extent[ein])[:, None, :] * ones
-    sn_out = (e_ax / mesh.extent[eout])[:, None, :] * ones
-    zs = np.asarray(fg.fmeas)[:, None] * ones[..., 0]
-    return sn_in, sn_out, zs
 
 
 class _DictBuilder:
@@ -185,6 +203,23 @@ class _ValueBuilder:
         return vals
 
 
+def pullback_diffusion(F):
+    """Tensor coefficient of the affine geometry map ``x -> F x``:
+    solving the Laplace problem on the image mesh F(Omega) equals
+    solving -div(K grad u) = |det F| f on the reference box mesh with
+    K = |det F| F^-1 F^-T (geometry expressed as a medium; meshes with
+    ``jac``/``corners`` fold it in by themselves)."""
+    F = np.asarray(F, np.float64)
+    Fi = np.linalg.inv(F)
+    K0 = abs(np.linalg.det(F)) * (Fi @ Fi.T)
+
+    def K(x):
+        return torch.as_tensor(K0, dtype=x.dtype, device=x.device).expand(
+            x.shape[:-1] + K0.shape)
+
+    return K
+
+
 def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
                      dirichlet: bool = False, diffusion=None,
                      dtype=torch.float64, plan: AssemblyPlan | None = None,
@@ -205,25 +240,35 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
 
     ``coef_parts``: return the factorized value buffer
     ``{(pr, pc): (coef [nblocks, K], D [K, br*bc])}`` (host numpy f64)
-    instead of a BlockSparseMatrix; constant coefficients only.
+    instead of a BlockSparseMatrix; constant coefficients on box meshes
+    only.
     """
     device = dev.resolve(device)
     plan = plan or build_plan(basis)
     mesh = basis.mesh
     dim = mesh.dim
-    fast = diffusion is None
-    kmat = is_tensor_coefficient(diffusion, dim, dtype, device)
+    affine = geo.has_affine(mesh)
+    # constant coefficients on boxes take the dictionary-GEMM fast path;
+    # variable diffusion, or first-class geometry (which folds into an
+    # effective per-point tensor), needs the per-quad-point einsums
+    fast = diffusion is None and not affine
+    kmat = affine or is_tensor_coefficient(diffusion, dim, dtype, device)
     theta = dg_theta(dg_form)
     if coef_parts and not fast:
-        raise ValueError("coef_parts needs constant coefficients "
-                         "(no diffusion)")
+        raise ValueError("coef_parts needs the constant-coefficient "
+                         "box-mesh fast path (no diffusion, no affine "
+                         "geometry)")
     vb = (_CoefBuilder(plan, dim, dtype, device) if coef_parts
           else _DictBuilder(plan, dim, dtype, device) if fast
           else _ValueBuilder(plan, dim, dtype, device))
     J = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
 
     def K(x):
-        return diffusion(J(x)).to(dtype)
+        return None if diffusion is None else diffusion(J(x)).to(dtype)
+
+    def Keff(elems, k, xp):
+        """The medium with the geometry folded in (on ``device``)."""
+        return J(geo.effective_tensor(mesh, elems, k, xp)) if affine else k
 
     # ---------------- bulk ----------------
     for p in basis.bucket_degrees:
@@ -239,13 +284,14 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
             for a in range(dim):
                 vb.add((p, p), slots, S[a], invh2[:, a])
             continue
-        k = K(mesh.lower[elems][:, None, :]
+        xp = (mesh.lower[elems][:, None, :]
               + vt["points"][None, :, :] * ext[:, None, :])
+        k = Keff(elems, K(geo.apply_map(mesh, elems, xp)), xp)
         if kmat:
             # tensor medium: detJ / (h_a h_b) geometry factors
             cof = detJ[:, None, None] / (ext[:, :, None] * ext[:, None, :])
-            bulk = torch.einsum("eqab,q,eab,aiq,bjq->eij", k, J(w), J(cof),
-                                J(G), J(G))
+            bulk = bulk_tensor_blocks(
+                k * J(w)[None, :, None, None] * J(cof)[:, None], J(G))
         else:
             bulk = torch.einsum("eq,ea,aiq,ajq->eij", k * J(w)[None, :],
                                 J(invh2), J(G), J(G))
@@ -259,7 +305,9 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
         w = fin["weights"]
         Vi, Di = fin["V"], fin["Dn"]
         Vo, Do = fout["V"], fout["Dn"]
-        pen1 = penalty_coef(fg, penalty, pmax, penalty_scaling)
+        pen1 = (geo.penalty_coef_mesh(mesh, fg, penalty, pmax,
+                                      penalty_scaling) if affine
+                else penalty_coef(fg, penalty, pmax, penalty_scaling))
         c_in = -0.5 * fg.fmeas * fg.inv_h_in
         c_out = -0.5 * fg.fmeas * fg.inv_h_out
         if fast:
@@ -294,19 +342,33 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
                 vb.add((po, pi), fg.slot21, GDio.T, -sigma1 * ihi * iho)
             continue
 
-        k = K(face_phys_points(basis, fg, fin["points"]))
+        # face quad points on the intersection: xp parametric (inside
+        # chart), the medium is evaluated at their physical image
+        xp = face_phys_points(basis, fg, fin["points"])
+        ein = mesh.faces.inside[fg.face_ids]
+        eout = mesh.faces.outside[fg.face_ids]
+        k = K(geo.apply_map(mesh, ein, xp))
         pen = J(pen1)[:, None, None]
         BVVi = J(np.einsum("iq,q,jq->ij", Vi, w, Vi))
         BVVo = J(np.einsum("iq,q,jq->ij", Vo, w, Vo))
         BVio = J(np.einsum("iq,q,jq->ij", Vi, w, Vo))
-        ein = mesh.faces.inside[fg.face_ids]
-        eout = mesh.faces.outside[fg.face_ids]
+        if affine:
+            xpo = face_phys_points(basis, fg, fin["points"], side="out")
+            k_in, k_out = Keff(ein, k, xp), Keff(eout, k, xpo)
+        else:
+            k_in = k_out = k
         if kmat:
-            # co-normal derivative traces (K grad phi).n =
-            # sum_b K[ax, b] Dall[b] / h_b on each side
-            KDi = torch.einsum("fqb,biq,fb->fiq", k[..., ax, :],
+            # tensor medium / geometry: co-normal derivative traces
+            # (K grad phi).n = sum_b k_eff[ax, b] Dall[b] / h_b, each side
+            # along ITS chart's face axis, signed so the parametric
+            # normal points inside -> outside (twisted imports; the
+            # defaults reduce to +e_axis on both sides)
+            sgn_i = float(2 * fg.in_side - 1)
+            sgn_o = float(1 - 2 * fg.out_side)
+            KDi = torch.einsum("fqb,biq,fb->fiq", sgn_i * k_in[..., ax, :],
                                J(fin["Dall"]), J(1.0 / mesh.extent[ein]))
-            KDo = torch.einsum("fqb,biq,fb->fiq", k[..., fg.out_axis, :],
+            KDo = torch.einsum("fqb,biq,fb->fiq",
+                               sgn_o * k_out[..., fg.out_axis, :],
                                J(fout["Dall"]), J(1.0 / mesh.extent[eout]))
             half = -0.5 * J(fg.fmeas)[:, None] * J(w)[None, :]
             # symmetry terms carry theta: coefficient 0.5 theta z =
@@ -324,9 +386,12 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
                    - theta * torch.einsum("fq,fiq,jq->fij", half, KDo, J(Vi))
                    - pen * BVio.T[None])
             if sigma1 != 0.0:
-                # sigma1/|f| int [grad u . n][grad v . n] ds with plain
-                # (no K) physical gradients
-                sn_i, sn_o, zs = grad_jump_geometry(mesh, fg, len(w))
+                # sigma1/|f|_phys int [grad u . n][grad v . n] ds with
+                # plain (no K) physical gradients and per-point normals
+                xpo_s1 = (xpo if affine else face_phys_points(
+                    basis, fg, fin["points"], side="out"))
+                sn_i, sn_o, zs = geo.face_grad_jump_geometry(
+                    mesh, fg, xp, xpo_s1)
                 s_in = J(np.einsum("biq,fqb->fiq", fin["Dall"], sn_i))
                 s_out = J(np.einsum("biq,fqb->fiq", fout["Dall"], sn_o))
                 zsw = zs * w[None, :]
@@ -377,7 +442,10 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
             ft = tensor.face_tables(p, dim, ax, side, p + 2,
                                     family=basis.family)
             w, V, D = ft["weights"], ft["V"], ft["Dn"]
-            pen1 = boundary_penalty_coef(bg, penalty, penalty_scaling)
+            pen1 = (geo.boundary_penalty_coef_mesh(mesh, bg, penalty,
+                                                   penalty_scaling)
+                    if affine else
+                    boundary_penalty_coef(bg, penalty, penalty_scaling))
             c = -sign * bg.fmeas * bg.inv_h
             if fast:
                 AVD = np.einsum("iq,q,jq->ij", V, w, D)
@@ -385,12 +453,13 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
                 vb.add((p, p), bg.pos, AVD - theta * AVD.T, c)
                 vb.add((p, p), bg.pos, BVV, pen1)
                 continue
-            k = K(boundary_phys_points(basis, bg, ft["points"]))
+            elems = mesh.bfaces.elem[bg.face_ids]
+            xp = boundary_phys_points(basis, bg, ft["points"])
+            k = Keff(elems, K(geo.apply_map(mesh, elems, xp)), xp)
             pen = J(pen1)[:, None, None]
             BVV = J(np.einsum("iq,q,jq->ij", V, w, V))
             if kmat:
                 # co-normal trace with outward normal sign * e_ax
-                elems = mesh.bfaces.elem[bg.face_ids]
                 KD = sign * torch.einsum(
                     "fqb,biq,fb->fiq", k[..., ax, :], J(ft["Dall"]),
                     J(1.0 / mesh.extent[elems]))

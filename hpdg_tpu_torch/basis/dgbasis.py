@@ -13,7 +13,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from hpdg_tpu_torch.basis import lagrange, tensor
-from hpdg_tpu_torch.mesh.structured import Mesh, require_box_geometry
+from hpdg_tpu_torch.mesh.structured import Mesh
 
 
 @dataclass(frozen=True)
@@ -66,14 +66,15 @@ class DGBasis:
 
     def node_positions(self, p: int) -> np.ndarray:
         """Physical positions of the nodal dofs of bucket p, shape
-        ``(n_p, (p+1)^dim, dim)`` (box meshes; mapped geometry waits for
-        ROADMAP queue 1, item 19)."""
-        require_box_geometry(self.mesh, "DGBasis.node_positions")
+        ``(n_p, (p+1)^dim, dim)`` (mapped through the mesh's geometry
+        where it has one)."""
+        from hpdg_tpu_torch.mesh import geometry as geo
         ref = lagrange.nodes_1d(p, self.family)[tensor.multiindices(p,
                                                                     self.dim)]
         elems = self.bucket_elems[p]
-        return (self.mesh.lower[elems][:, None, :]
-                + ref[None, :, :] * self.mesh.extent[elems][:, None, :])
+        x = (self.mesh.lower[elems][:, None, :]
+             + ref[None, :, :] * self.mesh.extent[elems][:, None, :])
+        return geo.apply_map(self.mesh, elems, x)
 
     def with_degrees(self, degrees: np.ndarray) -> "DGBasis":
         return DGBasis(self.mesh, degrees, self.family)

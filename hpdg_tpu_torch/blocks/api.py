@@ -1,8 +1,7 @@
 """High-level building blocks: assemble, solve.
 
 Port of ``hpdg_tpu.blocks.api`` (the reference's BuildingBlocks
-namespace, the API a user programs against).  ``mass`` and
-``dirichlet_data`` wait for ROADMAP queue 1, item 20.
+namespace, the API a user programs against).
 """
 
 from __future__ import annotations
@@ -11,6 +10,7 @@ import numpy as np
 import torch
 
 from hpdg_tpu_torch import device as dev
+from hpdg_tpu_torch.assemble import mass as _mass
 from hpdg_tpu_torch.assemble import rhs as _rhs
 from hpdg_tpu_torch.assemble import sipg as _sipg
 from hpdg_tpu_torch.basis.dgbasis import DGBasis
@@ -23,17 +23,20 @@ from hpdg_tpu_torch.solvers.tnnmg import solve_tnnmg
 
 
 def laplace(basis: DGBasis, penalty: float = 2.0, dirichlet: bool = False,
-            diffusion=None, plan=None, dtype=torch.float64, device=None):
+            diffusion=None, plan=None, dtype=torch.float64, device=None,
+            penalty_scaling: str = "measure"):
     """SIPG stiffness matrix (BuildingBlocks::laplace)."""
     return _sipg.assemble_laplace(basis, penalty=penalty, dirichlet=dirichlet,
                                   diffusion=diffusion, plan=plan, dtype=dtype,
+                                  penalty_scaling=penalty_scaling,
                                   device=device)
 
 
 def mass(basis: DGBasis, weight=None, quad_order=None, plan=None,
          dtype=torch.float64, device=None):
-    raise NotImplementedError("api.mass (assemble/mass.py): ROADMAP queue 1, "
-                              "item 20")
+    """(Weighted) mass matrix (BuildingBlocks::mass)."""
+    return _mass.assemble_mass(basis, weight=weight, quad_order=quad_order,
+                               plan=plan, dtype=dtype, device=device)
 
 
 def l2_functional(basis: DGBasis, f, quad_order=None, dtype=torch.float64,
@@ -44,9 +47,14 @@ def l2_functional(basis: DGBasis, f, quad_order=None, dtype=torch.float64,
 
 
 def dirichlet_data(basis: DGBasis, g, penalty: float = 2.0, plan=None,
-                   dtype=torch.float64, device=None):
-    raise NotImplementedError("api.dirichlet_data (the Dirichlet part of "
-                              "assemble/rhs.py): ROADMAP queue 1, item 20")
+                   dtype=torch.float64, device=None,
+                   penalty_scaling: str = "measure"):
+    """SIPG-consistent Dirichlet rhs terms (BuildingBlocks::
+    dirichletData); ``penalty`` and ``penalty_scaling`` are those of the
+    matrix it accompanies."""
+    return _rhs.dirichlet_rhs(basis, g, penalty=penalty, plan=plan,
+                              dtype=dtype, penalty_scaling=penalty_scaling,
+                              device=device)
 
 
 def solve_linear(basis: DGBasis, A, b, x0=None, tol: float = 1e-8,

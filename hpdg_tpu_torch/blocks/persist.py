@@ -2,7 +2,8 @@
 
 Port of ``hpdg_tpu.blocks.persist`` (the reference's SavedBasis /
 saveDegrees / updateDegrees / interpolateIntoRefinedBasis with the
-GridAdaptor underneath) for box meshes.
+GridAdaptor underneath); interpolation and restriction work in the
+parametric boxes and are geometry-agnostic.
 
 The "persistent grid view" is the old mesh's arrays: a
 :class:`SavedState` holds the old basis and the coefficients as one host
@@ -25,7 +26,8 @@ from hpdg_tpu_torch import device as dev
 from hpdg_tpu_torch.basis import lagrange, tensor
 from hpdg_tpu_torch.basis.dgbasis import DGBasis
 from hpdg_tpu_torch.linalg import blockvector as bv
-from hpdg_tpu_torch.mesh.structured import from_boxes, require_box_geometry
+from hpdg_tpu_torch.mesh import geometry as geo
+from hpdg_tpu_torch.mesh.structured import from_boxes
 
 
 @dataclass(frozen=True)
@@ -118,7 +120,6 @@ def interpolate_to(saved: SavedState, new_basis: DGBasis,
     Returns a bucket dict on ``device``."""
     old = saved.basis
     new_mesh = new_basis.mesh
-    require_box_geometry(new_mesh, "interpolate_to")
     anc = _ancestor_chain(new_mesh, old.mesh)
     # affine map of each new element into its ancestor's reference cell
     scale = new_mesh.extent / old.mesh.extent[anc]
@@ -155,9 +156,18 @@ def degrees_after_refine(old_degrees: np.ndarray, new_mesh) -> np.ndarray:
 
 def save_npz(path: str, saved: SavedState):
     """Checkpoint a state to disk: element boxes, degree map and
-    coefficients, as plain arrays (the reference's file layout)."""
+    coefficients, as plain arrays (the reference's file layout).
+
+    That layout has no geometry fields, so a mesh with first-class
+    geometry is refused: written this way it would come back from
+    :func:`load_npz` as a box mesh, its ``jac``/``shift``/``corners``
+    silently dropped."""
     m = saved.basis.mesh
-    require_box_geometry(m, "save_npz")
+    if geo.has_geometry(m):
+        raise ValueError(
+            "save_npz: the checkpoint layout (lower, extent, degrees, "
+            "flat, family) has no geometry fields; the mesh's "
+            "jac/shift/corners would be lost on load")
     np.savez(path, lower=m.lower, extent=m.extent,
              degrees=saved.basis.degrees, flat=saved.flat,
              family=np.array(saved.basis.family))
@@ -223,7 +233,6 @@ def restrict_to_coarse(saved: SavedState, new_basis: DGBasis,
     old = saved.basis
     fine_mesh = old.mesh
     new_mesh = new_basis.mesh
-    require_box_geometry(new_mesh, "restrict_to_coarse")
     dim = fine_mesh.dim
     nc = 2**dim
     kept, children = _coarse_sources(fine_mesh, new_mesh)

@@ -55,3 +55,28 @@ def saved_state(basis, flat):
         raise ValueError(f"flat vector of shape {flat.shape}, the basis has "
                          f"{basis.ndof} dofs")
     return SavedState(basis=basis, flat=flat)
+
+
+def mesh(dim: int, lower, extent, faces: dict, bfaces: dict, jac=None,
+         shift=None, corners=None, parent=None, child_pos=None,
+         parent_mesh=None):
+    """A reference ``Mesh`` given as its numpy fields -> the port's
+    ``Mesh`` with the IDENTICAL topology (no re-matching, so element
+    frames and face charts of an importer carry over one to one).
+
+    ``faces``: ``inside``, ``outside``, ``axis`` and optionally
+    ``nc_code``, ``in_side``, ``out_axis``, ``out_side``, ``twist``;
+    ``bfaces``: ``elem``, ``axis``, ``side``.  ``parent_mesh`` is the
+    port's mesh that ``parent`` indexes into (already converted)."""
+    from hpdg_tpu_torch.mesh.structured import BoundaryFaces, Faces, Mesh
+    i32 = lambda a: np.array(a, dtype=np.int32, copy=True)  # noqa: E731
+    f64 = lambda a: (None if a is None  # noqa: E731
+                     else np.array(a, dtype=np.float64, copy=True))
+    return Mesh(
+        dim=int(dim), lower=f64(lower), extent=f64(extent),
+        faces=Faces(**{k: i32(v) for k, v in faces.items()}),
+        bfaces=BoundaryFaces(**{k: i32(v) for k, v in bfaces.items()}),
+        parent=None if parent is None else i32(parent),
+        child_pos=None if child_pos is None else i32(child_pos),
+        parent_mesh=parent_mesh, jac=f64(jac), shift=f64(shift),
+        corners=f64(corners))

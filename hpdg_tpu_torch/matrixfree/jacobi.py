@@ -1,6 +1,6 @@
 """Matrix-free block-Jacobi drivers and diagonal-block factories.
 
-Port of ``hpdg_tpu.matrixfree.jacobi`` on box meshes:
+Port of ``hpdg_tpu.matrixfree.jacobi``:
 
 * the mass and heat diagonal blocks (mass + SIPG stiffness), plain and
   weighted (a mass weight w(x), a diffusion coefficient K(x));
@@ -11,8 +11,9 @@ Port of ``hpdg_tpu.matrixfree.jacobi`` on box meshes:
 * matrix-free projected and nonlinear block Jacobi.
 
 The blocks are computed in numpy f64 on the host (set-up work) and
-handed over as tensors in ``dtype`` on ``device``.  Affine and
-trilinear geometry wait for ROADMAP queue 1, item 19.
+handed over as tensors in ``dtype`` on ``device``.  Geometry-aware:
+affine maps scale by |det A|, trilinear (Q1) maps integrate the
+per-point |det J|.
 """
 
 from __future__ import annotations
@@ -22,26 +23,34 @@ import torch
 
 from hpdg_tpu_torch import device as dev
 from hpdg_tpu_torch.assemble.plan import AssemblyPlan
+from hpdg_tpu_torch.assemble.rhs import volume_detj
 from hpdg_tpu_torch.basis import tensor
 from hpdg_tpu_torch.basis.dgbasis import DGBasis
 from hpdg_tpu_torch.linalg import blockvector as bv
 from hpdg_tpu_torch.matrixfree.diagonal import sipg_diagonal_blocks
-from hpdg_tpu_torch.mesh.structured import require_box_geometry
+from hpdg_tpu_torch.mesh import geometry as geo
 
 
 def mass_diagonal_blocks(basis: DGBasis, dtype=torch.float64,
                          device=None) -> dict:
     """p -> [n_p, bs, bs] element mass blocks (the mass matrix is
     block-diagonal)."""
-    require_box_geometry(basis.mesh, "mass_diagonal_blocks")
     device = dev.resolve(device)
+    mesh = basis.mesh
     out = {}
     for p in basis.bucket_degrees:
         vt = tensor.volume_tables(p, basis.dim, p + 2, family=basis.family)
-        detJ = np.prod(basis.mesh.extent[basis.bucket_elems[p]], axis=1)
-        M0 = np.einsum("iq,q,jq->ij", vt["V"], vt["weights"], vt["V"])
-        out[p] = torch.as_tensor(detJ[:, None, None] * M0[None], dtype=dtype,
-                                 device=device)
+        elems = basis.bucket_elems[p]
+        xpq = (mesh.lower[elems][:, None, :]
+               + vt["points"][None, :, :] * mesh.extent[elems][:, None, :])
+        detq = volume_detj(mesh, elems, xpq)  # [n, q] on Q1, else [n, 1]
+        if geo.is_trilinear(mesh):
+            Me = np.einsum("eq,q,iq,jq->eij", detq, vt["weights"],
+                           vt["V"], vt["V"])
+        else:
+            M0 = np.einsum("iq,q,jq->ij", vt["V"], vt["weights"], vt["V"])
+            Me = detq[:, :, None] * M0[None]
+        out[p] = torch.as_tensor(Me, dtype=dtype, device=device)
     return out
 
 
@@ -132,7 +141,6 @@ def weighted_mass_diagonal_blocks(basis: DGBasis, weight,
     """p -> [n_p, bs, bs] element blocks of (w(x) u, v); ``weight`` is a
     vectorized callable on tensors of physical points (..., dim)."""
     mesh = basis.mesh
-    require_box_geometry(mesh, "weighted_mass_diagonal_blocks")
     device = dev.resolve(device)
     J = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
     out = {}
@@ -140,10 +148,10 @@ def weighted_mass_diagonal_blocks(basis: DGBasis, weight,
         vt = tensor.volume_tables(p, basis.dim, p + 2, family=basis.family)
         elems = basis.bucket_elems[p]
         ext = mesh.extent[elems]
-        x = (mesh.lower[elems][:, None, :]
-             + vt["points"][None, :, :] * ext[:, None, :])
-        wq = weight(J(x)).to(dtype) * J(vt["weights"])[None, :] \
-            * J(np.prod(ext, axis=1))[:, None]
+        xp = (mesh.lower[elems][:, None, :]
+              + vt["points"][None, :, :] * ext[:, None, :])
+        wq = weight(J(geo.apply_map(mesh, elems, xp))).to(dtype) \
+            * J(vt["weights"])[None, :] * J(volume_detj(mesh, elems, xp))
         out[p] = torch.einsum("eq,iq,jq->eij", wq, J(vt["V"]), J(vt["V"]))
     return out
 

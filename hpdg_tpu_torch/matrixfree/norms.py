@@ -1,7 +1,7 @@
 """DG energy-norm functionals: the per-element error indicator.
 
-Port of ``hpdg_tpu.matrixfree.norms`` for box meshes (IPDGLocalNorm of
-the reference):
+Port of ``hpdg_tpu.matrixfree.norms`` (IPDGLocalNorm of the
+reference):
 
     eta_e^2 = (grad x, grad x)_E + sum_{faces f of E} sigma max(p)^2
               / (2 |f|) int_f [x]^2
@@ -11,8 +11,10 @@ elements; boundary faces count fully for their element when
 ``dirichlet``.  ``jump_indicator`` is the face part alone.  Both return
 ``apply(x) -> Tensor[n_elements]`` in flat element order, on the
 device of their tables; every bucket and face group lands in ``eta``
-with one ``index_add_``.  Mapped geometry waits for ROADMAP queue 1,
-item 19.
+with one ``index_add_``.  On meshes with first-class geometry the bulk
+part is the PHYSICAL gradient energy, through the effective tensor
+``|det J| J^-1 J^-T`` uploaded at build; the face part keeps the
+parametric penalty coefficients, as in the reference.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ from hpdg_tpu_torch.assemble.plan import (AssemblyPlan, boundary_penalty_coef,
 from hpdg_tpu_torch.basis import tensor
 from hpdg_tpu_torch.basis.dgbasis import DGBasis
 from hpdg_tpu_torch.matrixfree.sumfact import _bucket_geometry, _chain
-from hpdg_tpu_torch.mesh.structured import (require_box_geometry,
-                                            require_classic_faces)
+from hpdg_tpu_torch.mesh import geometry as geo
+from hpdg_tpu_torch.mesh.structured import require_classic_faces
 
 
 def _face_terms(basis: DGBasis, plan: AssemblyPlan, penalty: float,
@@ -67,7 +69,6 @@ def ipdg_local_norm(basis: DGBasis, penalty: float = 2.0,
     """Returns ``apply(x) -> Tensor[n_elements]`` of eta_e^2 (flat
     element order) in ``dtype`` on ``device``."""
     require_classic_faces(basis.mesh, "ipdg_local_norm")
-    require_box_geometry(basis.mesh, "ipdg_local_norm")
     device = dev.resolve(device)
     plan = plan or build_plan(basis)
     dim = basis.dim
@@ -82,12 +83,22 @@ def ipdg_local_norm(basis: DGBasis, penalty: float = 2.0,
         ext, detJ = _bucket_geometry(basis, p)
         wq = vt["weights"].reshape((len(t1.qweights),) * dim)
         V, D = J(t1.values), J(t1.derivatives)
-        bulk.append(dict(
+        bshape = lambda v: J(v).reshape((-1,) + (1,) * dim)  # noqa: E731
+        t = dict(
             p=p, elems=I(basis.bucket_elems[p]), wq=J(wq)[None],
             tabs=[[D if b == a else V for b in range(dim)]
                   for a in range(dim)],
-            coef=[J(detJ / ext[:, a] ** 2).reshape((-1,) + (1,) * dim)
-                  for a in range(dim)]))
+            coef=[bshape(detJ / ext[:, a] ** 2) for a in range(dim)])
+        if geo.has_geometry(mesh):
+            elems = basis.bucket_elems[p]
+            xpq = (mesh.lower[elems][:, None, :]
+                   + vt["points"][None, :, :] * ext[:, None, :])
+            G = geo.effective_tensor(mesh, elems, None, xpq)
+            t["G"] = J(np.ascontiguousarray(G)).reshape(
+                (-1,) + wq.shape + (dim, dim))
+            t["invh"] = [bshape(1.0 / ext[:, a]) for a in range(dim)]
+            t["wdet"] = t["wq"] * bshape(detJ)
+        bulk.append(t)
     faces = _face_terms(basis, plan, penalty, penalty_scaling, J, I)
     bnd = []
     if dirichlet:
@@ -106,10 +117,18 @@ def ipdg_local_norm(basis: DGBasis, penalty: float = 2.0,
         for t in bulk:
             u = x[t["p"]].reshape((-1,) + (t["tabs"][0][0].shape[0],) * dim)
             acc = 0.0
-            for a in range(dim):
-                du = _chain(u, t["tabs"][a])
-                acc = acc + (t["coef"][a] * t["wq"] * du ** 2).reshape(
-                    du.shape[0], -1).sum(dim=1)
+            if "G" in t:
+                dus = [_chain(u, t["tabs"][a]) * t["invh"][a]
+                       for a in range(dim)]
+                for a in range(dim):
+                    for b in range(dim):
+                        acc = acc + (t["wdet"] * t["G"][..., a, b] * dus[a]
+                                     * dus[b]).reshape(u.shape[0], -1).sum(1)
+            else:
+                for a in range(dim):
+                    du = _chain(u, t["tabs"][a])
+                    acc = acc + (t["coef"][a] * t["wq"] * du ** 2).reshape(
+                        du.shape[0], -1).sum(dim=1)
             eta = eta.index_add(0, t["elems"], acc)
         eta = _add_jumps(eta, x, faces)
         for t in bnd:

@@ -1,7 +1,7 @@
 """Sum-factorized matrix-free SIPG / Laplace / mass operators.
 
-Port of ``hpdg_tpu.matrixfree.sumfact`` for box meshes, in any
-dimension, with mixed degrees and 2:1 hanging faces:
+Port of ``hpdg_tpu.matrixfree.sumfact``, in any dimension, with mixed
+degrees, 2:1 hanging faces and first-class geometry:
 
 * the bulk term contracts each degree bucket with the 1D value and
   derivative tables one axis at a time (:func:`_chain`), O(d (p+1)^(d+1))
@@ -13,8 +13,10 @@ dimension, with mixed degrees and 2:1 hanging faces:
   bucket with ONE ``index_add_``.
 
 Every operator is a closure ``{p: Tensor[n_p, (p+1)^d]} -> {p: ...}``
-whose constants live on ``device`` in ``dtype``.  Affine/trilinear
-geometry waits for ROADMAP queue 1, item 19.
+whose constants live on ``device`` in ``dtype``.  Geometry folds into
+per-point effective tensors (``mesh/geometry.py``) that are computed on
+the host and uploaded ONCE at operator build; the apply never touches
+the host.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ from hpdg_tpu_torch.assemble.plan import (AssemblyPlan, build_plan,
                                           boundary_phys_points,
                                           face_group_tables, face_phys_points,
                                           penalty_coef, boundary_penalty_coef)
-from hpdg_tpu_torch.assemble.sipg import (dg_theta, grad_jump_geometry,
-                                          is_tensor_coefficient)
+from hpdg_tpu_torch.assemble.sipg import dg_theta, is_tensor_coefficient
+from hpdg_tpu_torch.mesh import geometry as geo
 
 
 def _chain(u: torch.Tensor, tables: list) -> torch.Tensor:
@@ -49,15 +51,36 @@ def _bucket_geometry(basis: DGBasis, p: int):
     return ext, np.prod(ext, axis=1)
 
 
+def _medium(mesh, elems, xpq, diffusion, J):
+    """The medium of one batch of points as a closure ``() -> k`` on the
+    device: the user's ``diffusion`` evaluated at the physical image of
+    the GLOBAL parametric points ``xpq`` (n, q, dim) of ``elems``, with
+    the mesh's geometry folded in (``|det J| J^-1 K J^-T``).  Everything
+    that does not depend on the apply's input is uploaded here; without
+    ``diffusion`` the effective tensor is a constant."""
+    affine = geo.has_affine(mesh)
+    if diffusion is None:
+        keff = J(geo.effective_tensor(mesh, elems, None, xpq))
+        return lambda: keff
+    xq = J(geo.apply_map(mesh, elems, xpq))
+    if not affine:
+        return lambda: diffusion(xq).to(xq.dtype)
+    Ji, det = (J(a) for a in geo.pullback_factors(mesh, elems, xpq))
+    return lambda: geo.fold_medium(Ji, det, diffusion(xq).to(xq.dtype))
+
+
 def laplace_bulk_operator(basis: DGBasis, diffusion=None,
                           dtype=torch.float64, device=None):
     """Matrix-free (K grad u, grad v) over all elements.
 
     ``diffusion`` may return a scalar or a symmetric (dim, dim) TENSOR
-    per point (anisotropic media)."""
+    per point (anisotropic media); on meshes with geometry the pullback
+    tensor is folded in."""
     device = dev.resolve(device)
     dim = basis.dim
-    kmat = is_tensor_coefficient(diffusion, dim, dtype, device)
+    mesh = basis.mesh
+    affine = geo.has_affine(mesh)
+    kmat = affine or is_tensor_coefficient(diffusion, dim, dtype, device)
     J = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
     bshape = lambda v: v.reshape((-1,) + (1,) * dim)  # noqa: E731
     prep = {}
@@ -70,10 +93,10 @@ def laplace_bulk_operator(basis: DGBasis, diffusion=None,
         V, D = J(t1.values), J(t1.derivatives)
         item = dict(V=V, D=D, Vt=V.T.contiguous(), Dt=D.T.contiguous(),
                     wq=wq)
-        if diffusion is not None:
-            xq = (basis.mesh.lower[elems][:, None, :]
-                  + vt["points"][None, :, :] * ext[:, None, :])
-            item["xq"] = J(xq)
+        if diffusion is not None or affine:
+            xpq = (mesh.lower[elems][:, None, :]
+                   + vt["points"][None, :, :] * ext[:, None, :])
+            item["k"] = _medium(mesh, elems, xpq, diffusion, J)
         if kmat:
             item["invh"] = [bshape(J(1.0 / ext[:, a])) for a in range(dim)]
             item["wdet"] = wq[None] * bshape(J(detJ))
@@ -88,9 +111,7 @@ def laplace_bulk_operator(basis: DGBasis, diffusion=None,
             shp = x[p].shape
             d1 = it["V"].shape[0]
             u = x[p].reshape((shp[0],) + (d1,) * dim)
-            kq = None
-            if diffusion is not None:
-                kq = diffusion(it["xq"]).to(dtype)
+            kq = it["k"]() if "k" in it else None
             tabs_f = lambda a: [it["D"] if c == a else it["V"]  # noqa: E731
                                 for c in range(dim)]
             tabs_b = lambda a: [it["Dt"] if c == a else it["Vt"]  # noqa: E731
@@ -123,20 +144,62 @@ def laplace_bulk_operator(basis: DGBasis, diffusion=None,
 
 
 def mass_operator(basis: DGBasis, dtype=torch.float64, device=None):
-    """Matrix-free (u, v): one dense block GEMM per bucket."""
+    """Matrix-free (u, v): one dense block GEMM per bucket (per-element
+    blocks on trilinear meshes, whose volume element varies per point)."""
     device = dev.resolve(device)
+    mesh = basis.mesh
     J = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
     prep = {}
     for p in basis.bucket_degrees:
         vt = tensor.volume_tables(p, basis.dim, p + 2, family=basis.family)
-        _, detJ = _bucket_geometry(basis, p)
-        M0 = np.einsum("iq,q,jq->ij", vt["V"], vt["weights"], vt["V"])
-        prep[p] = (J(M0), J(detJ)[:, None])
+        ext, detJ = _bucket_geometry(basis, p)
+        elems = basis.bucket_elems[p]
+        if geo.is_trilinear(mesh):
+            xpq = (mesh.lower[elems][:, None, :]
+                   + vt["points"][None, :, :] * ext[:, None, :])
+            detq = detJ[:, None] * geo.detj_phys(mesh, elems, xpq)
+            Me = np.einsum("eq,q,iq,jq->eij", detq, vt["weights"],
+                           vt["V"], vt["V"])
+            prep[p] = (J(Me), None)
+        else:
+            M0 = np.einsum("iq,q,jq->ij", vt["V"], vt["weights"], vt["V"])
+            prep[p] = (J(M0), J(detJ * geo.detj_phys(mesh, elems))[:, None])
 
     def apply(x):
-        return {p: (x[p] @ M) * detJ for p, (M, detJ) in prep.items()}
+        return {p: (torch.einsum("ni,nij->nj", x[p], M) if detJ is None
+                    else (x[p] @ M) * detJ)
+                for p, (M, detJ) in prep.items()}
 
     return apply
+
+
+def _conormal_rows(mesh, diffusion, J, *sides):
+    """Closure ``() -> tuple`` of the signed conormal rows
+    ``sign * k_eff[..., axis, :]`` (nf, q, dim), one per ``side =
+    (elems, xpq, axis, sign)``.  Constant media (``diffusion is None``)
+    keep only the rows on the device; a user medium is evaluated ONCE per
+    apply at the inside points and shared by the sides."""
+    if diffusion is None:
+        rows = tuple(
+            sgn * J(geo.effective_tensor(mesh, e, None, xpq)[..., ax, :])
+            for e, xpq, ax, sgn in sides)
+        return lambda: rows
+    e0, xpq0 = sides[0][:2]
+    xq = J(geo.apply_map(mesh, e0, xpq0))
+    if not geo.has_affine(mesh):
+        def plain():
+            k = diffusion(xq).to(xq.dtype)
+            return tuple(sgn * k[..., ax, :] for _, _, ax, sgn in sides)
+        return plain
+    fac = [tuple(J(a) for a in geo.pullback_factors(mesh, e, xpq))
+           for e, xpq, _, _ in sides]
+
+    def folded():
+        k = diffusion(xq).to(xq.dtype)
+        return tuple(
+            sgn * geo.fold_medium(Ji, det, k)[..., ax, :]
+            for (Ji, det), (_, _, ax, sgn) in zip(fac, sides))
+    return folded
 
 
 def _face_prep(basis: DGBasis, plan: AssemblyPlan):
@@ -168,7 +231,8 @@ def sipg_operator(basis: DGBasis, penalty: float = 2.0,
     plan = plan or build_plan(basis)
     dim = basis.dim
     mesh = basis.mesh
-    kmat = is_tensor_coefficient(diffusion, dim, dtype, device)
+    affine = geo.has_affine(mesh)
+    kmat = affine or is_tensor_coefficient(diffusion, dim, dtype, device)
     theta = dg_theta(dg_form)
     bulk = laplace_bulk_operator(basis, diffusion=diffusion, dtype=dtype,
                                  device=device)
@@ -179,8 +243,10 @@ def sipg_operator(basis: DGBasis, penalty: float = 2.0,
     groups = []
     for g in _face_prep(basis, plan):
         fg = g["fg"]
-        pen_w = (penalty_coef(fg, penalty, g["pmax"], penalty_scaling)[:, None]
-                 * g["w"][None, :])
+        pen_w = ((geo.penalty_coef_mesh(mesh, fg, penalty, g["pmax"],
+                                        penalty_scaling) if affine else
+                  penalty_coef(fg, penalty, g["pmax"],
+                               penalty_scaling))[:, None] * g["w"][None, :])
         ein = mesh.faces.inside[fg.face_ids]
         eout = mesh.faces.outside[fg.face_ids]
         t = dict(p_in=fg.p_in, p_out=fg.p_out,
@@ -190,16 +256,25 @@ def sipg_operator(basis: DGBasis, penalty: float = 2.0,
                  DoT=J(g["Do"].T), w=J(g["w"]),
                  zw=J(fg.fmeas[:, None] * g["w"][None, :]), pen_w=J(pen_w),
                  ihi=J(fg.inv_h_in)[:, None], iho=J(fg.inv_h_out)[:, None])
-        if diffusion is not None:
-            t["xq"] = J(face_phys_points(basis, fg, g["pts"]))
+        if diffusion is not None or affine:
+            xpq = face_phys_points(basis, fg, g["pts"])  # parametric
+            xpq_out = face_phys_points(basis, fg, g["pts"], side="out")
+        if diffusion is not None and not kmat:
+            t["k"] = _medium(mesh, ein, xpq, diffusion, J)
         if kmat:
-            # each side's conormal row along its face axis
-            t["ax"], t["oax"] = fg.axis, fg.out_axis
+            # each side's conormal row along ITS chart's face axis,
+            # signed so the parametric normal points inside -> outside
+            # (twisted imports; the defaults keep +e_axis)
+            t["Ka"] = _conormal_rows(
+                mesh, diffusion, J,
+                (ein, xpq, fg.axis, float(2 * fg.in_side - 1)),
+                (eout, xpq_out, fg.out_axis, float(1 - 2 * fg.out_side)))
             t["ihv"] = J(1.0 / mesh.extent[ein])
             t["ohv"] = J(1.0 / mesh.extent[eout])
             t["Dalli"], t["Dallo"] = J(g["Dalli"]), J(g["Dallo"])
             if sigma1 != 0.0:
-                sn_i, sn_o, zs = grad_jump_geometry(mesh, fg, len(g["w"]))
+                sn_i, sn_o, zs = geo.face_grad_jump_geometry(
+                    mesh, fg, xpq, xpq_out)
                 zsw = zs * g["w"][None, :]
                 t["s1_cw"] = J((sigma1 / zsw.sum(axis=1))[:, None] * zsw)
                 t["s1_sn_in"], t["s1_sn_out"] = J(sn_i), J(sn_o)
@@ -215,15 +290,19 @@ def sipg_operator(basis: DGBasis, penalty: float = 2.0,
                      V=J(ft["V"]), D=J(ft["Dn"]), VT=J(ft["V"].T),
                      DT=J(ft["Dn"].T),
                      zw=J(bg.fmeas[:, None] * ft["weights"][None, :]),
-                     pen_w=J(boundary_penalty_coef(bg, penalty,
-                                                   penalty_scaling)[:, None]
-                             * ft["weights"][None, :]),
+                     pen_w=J((geo.boundary_penalty_coef_mesh(
+                         mesh, bg, penalty, penalty_scaling) if affine else
+                         boundary_penalty_coef(bg, penalty, penalty_scaling)
+                     )[:, None] * ft["weights"][None, :]),
                      sih=J(sign * bg.inv_h)[:, None])
-            if diffusion is not None:
-                t["xq"] = J(boundary_phys_points(basis, bg, ft["points"]))
+            elems = mesh.bfaces.elem[bg.face_ids]
+            if diffusion is not None or affine:
+                xpq = boundary_phys_points(basis, bg, ft["points"])
+            if diffusion is not None and not kmat:
+                t["k"] = _medium(mesh, elems, xpq, diffusion, J)
             if kmat:
-                elems = mesh.bfaces.elem[bg.face_ids]
-                t["ax"] = bg.axis
+                t["Ka"] = _conormal_rows(mesh, diffusion, J,
+                                         (elems, xpq, bg.axis, 1.0))
                 t["Dall"] = J(ft["Dall"])
                 t["ih"] = J(1.0 / mesh.extent[elems])
             bgroups.append(t)
@@ -238,9 +317,6 @@ def sipg_operator(basis: DGBasis, penalty: float = 2.0,
         targets[t["p"]].append(t["pos"])
     targets = {p: torch.cat(v) for p, v in targets.items() if v}
 
-    def K(xq):
-        return diffusion(xq).to(dtype)
-
     def apply(x):
         y = bulk(x)
         contribs = {p: [] for p in targets}
@@ -250,9 +326,7 @@ def sipg_operator(basis: DGBasis, penalty: float = 2.0,
             jump = u_in @ t["Vi"] - u_out @ t["Vo"]
             zw, penw = t["zw"], t["pen_w"]
             if kmat:
-                k = K(t["xq"])
-                Kai = k[..., t["ax"], :]
-                Kao = k[..., t["oax"], :]  # (nf, q, dim)
+                Kai, Kao = t["Ka"]()  # (nf, q, dim)
                 duin = torch.einsum("fi,biq->fbq", u_in, t["Dalli"])
                 duout = torch.einsum("fi,biq->fbq", u_out, t["Dallo"])
                 dninq = torch.einsum("fqb,fb,fbq->fq", Kai, t["ihv"], duin)
@@ -280,7 +354,7 @@ def sipg_operator(basis: DGBasis, penalty: float = 2.0,
             dninq = (u_in @ t["Di"]) * t["ihi"]
             dnoutq = (u_out @ t["Do"]) * t["iho"]
             avg = 0.5 * (dninq + dnoutq)
-            k = 1.0 if diffusion is None else K(t["xq"])
+            k = 1.0 if diffusion is None else t["k"]()
             t1_in = zw * (-(k * avg)) + penw * jump
             t2 = zw * (0.5 * theta * k * jump)
             t2_in = t2 * t["ihi"]
@@ -300,7 +374,7 @@ def sipg_operator(basis: DGBasis, penalty: float = 2.0,
             uq = u @ t["V"]
             zw, penw = t["zw"], t["pen_w"]
             if kmat:
-                Ka = K(t["xq"])[..., t["ax"], :]
+                Ka, = t["Ka"]()
                 du = torch.einsum("fi,biq->fbq", u, t["Dall"])
                 dnKq = t["sign"] * torch.einsum("fqb,fb,fbq->fq", Ka,
                                                 t["ih"], du)
@@ -311,7 +385,7 @@ def sipg_operator(basis: DGBasis, penalty: float = 2.0,
                         "fq,fqb,fb,biq->fi", t2b, Ka, t["ih"], t["Dall"]))
                 continue
             dnq = (u @ t["D"]) * t["sih"]
-            k = 1.0 if diffusion is None else K(t["xq"])
+            k = 1.0 if diffusion is None else t["k"]()
             t1 = zw * (-(k * dnq)) + penw * uq
             t2 = zw * (theta * k * uq) * t["sih"]
             contribs[t["p"]].append(t1 @ t["VT"] + t2 @ t["DT"])

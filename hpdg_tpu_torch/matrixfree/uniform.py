@@ -43,6 +43,10 @@ def _check_uniform(basis: DGBasis, what: str):
         raise ValueError(f"{what} needs a single degree")
     if not np.allclose(mesh.extent, mesh.extent[0]):
         raise ValueError(f"{what} needs uniform extents")
+    if getattr(mesh, "jac", None) is not None \
+            or getattr(mesh, "corners", None) is not None:
+        raise ValueError(f"{what}: general geometry unsupported "
+                         "(axis-aligned lattices only)")
     if len(mesh.faces.inside) and np.any(mesh.faces.nc_code != 0):
         raise ValueError(f"{what}: conforming meshes only")
 

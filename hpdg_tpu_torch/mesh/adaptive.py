@@ -10,8 +10,9 @@ non-conforming face is then a half-face, which the face matcher of
 ``unrefine`` merges complete marked sibling groups back into their
 parents; ``semicoarsen`` merges element pairs along one axis and
 ``semicoarsen_chain`` repeats it until the elements are nearly
-isotropic.  Meshes with mapped geometry wait for ROADMAP queue 1, item
-19.
+isotropic.  First-class geometry (``jac``/``shift``/``corners``) is
+carried along: children restrict the parent's map exactly, merged
+elements take it back.
 """
 
 from __future__ import annotations
@@ -20,8 +21,7 @@ from dataclasses import replace
 
 import numpy as np
 
-from hpdg_tpu_torch.mesh.structured import (Mesh, from_boxes,
-                                            require_box_geometry)
+from hpdg_tpu_torch.mesh.structured import Mesh, from_boxes
 
 
 def _levels(mesh: Mesh) -> np.ndarray:
@@ -56,7 +56,18 @@ def refine_local(mesh: Mesh, marks: np.ndarray) -> Mesh:
     Unmarked elements keep their box and map to themselves through
     ``parent`` with ``child_pos == -1``; marked elements are replaced by
     their 2^dim children (parent-major, child position in C order).
+
+    A mesh whose elements live in per-element parametric charts
+    (``geometry.from_cell_vertices``: disjoint unit boxes) is refused:
+    the face matcher works on the parametric boxes and would turn every
+    interior face of such a mesh into boundary.
     """
+    from hpdg_tpu_torch.mesh import geometry as _geo
+    if _geo.has_element_charts(mesh):
+        raise ValueError(
+            "refine_local: the mesh has per-element parametric charts "
+            "(from_cell_vertices import); its faces cannot be re-matched "
+            "from the parametric boxes, so refining it would drop them")
     marks = close_marks(mesh, marks)
     n, dim = mesh.lower.shape
     nc = 2**dim
@@ -74,8 +85,21 @@ def refine_local(mesh: Mesh, marks: np.ndarray) -> Mesh:
     lowers = mesh.lower[parent] + np.where(
         refined[:, None], bits[np.clip(child_pos, 0, nc - 1)] * half, 0.0)
     extents = np.where(refined[:, None], half, mesh.extent[parent])
+    jac = shift = corners = None
+    if mesh.jac is not None:  # children inherit the parent's affine map
+        jac = mesh.jac[parent]
+        shift = mesh.shift[parent]
+    if mesh.corners is not None:
+        # refined rows get the parent trilinear map evaluated at the
+        # child corners (exact restriction); kept rows copy verbatim
+        corners = mesh.corners[parent].copy()
+        ref = np.where(refined)[0]
+        if len(ref):
+            corners[ref] = _geo.q1_child_corners(
+                mesh.corners, parent[ref], child_pos[ref])
     return from_boxes(lowers, extents, parent=parent, child_pos=child_pos,
-                      parent_mesh=mesh)
+                      parent_mesh=mesh, jac=jac, shift=shift,
+                      corners=corners)
 
 
 def unrefine(mesh: Mesh, marks: np.ndarray) -> Mesh:
@@ -89,7 +113,6 @@ def unrefine(mesh: Mesh, marks: np.ndarray) -> Mesh:
     ``parent_mesh`` is ``mesh``, so ``blocks.persist.restrict_to_coarse``
     can carry state across.
     """
-    require_box_geometry(mesh, "unrefine")
     if mesh.parent is None or mesh.parent_mesh is None:
         raise ValueError("unrefine needs refinement links")
     marks = np.asarray(marks, dtype=bool)
@@ -111,8 +134,22 @@ def unrefine(mesh: Mesh, marks: np.ndarray) -> Mesh:
     parent = np.concatenate([kept, first_member]).astype(np.int32)
     child_pos = np.concatenate([np.full(len(kept), -1),
                                 np.full(len(merge), -2)]).astype(np.int32)
+    jac = shift = corners = None
+    if mesh.jac is not None:  # siblings share the parent's affine map
+        jac = np.concatenate([mesh.jac[kept], mesh.jac[first_member]])
+        shift = np.concatenate([mesh.shift[kept], mesh.shift[first_member]])
+    if mesh.corners is not None:
+        # parent corner c = corner c of the child at position c (the
+        # exact inverse of q1_child_corners' restriction)
+        member = np.full((pm.n_elements, nc), -1, dtype=np.int64)
+        member[pes, mesh.child_pos[sib]] = sib
+        kids = member[merge]  # (n_merge, nc) by child position
+        corners = np.concatenate([
+            mesh.corners[kept],
+            mesh.corners[kids, np.arange(nc)[None, :]]])
     return from_boxes(lowers, extents, parent=parent, child_pos=child_pos,
-                      parent_mesh=mesh)
+                      parent_mesh=mesh, jac=jac, shift=shift,
+                      corners=corners)
 
 
 def semicoarsen(mesh: Mesh, axis: int):
@@ -125,7 +162,6 @@ def semicoarsen(mesh: Mesh, axis: int):
     1 high) point into it, for the transfer set-up; ``mesh`` itself is
     not touched.
     """
-    require_box_geometry(mesh, "semicoarsen")
     n = mesh.n_elements
     tol = mesh.extent.min() * 1e-6
     # pair low/high elements along the axis by quantized geometry keys
@@ -139,7 +175,7 @@ def semicoarsen(mesh: Mesh, axis: int):
         table[(tuple(key_lo[e]), tuple(ext_key[e]), ax_lo[e])] = e
     parent = np.full(n, -1, dtype=np.int32)
     child_pos = np.full(n, -1, dtype=np.int32)
-    lows = []
+    lows, mates = [], []
     for e in range(n):
         if parent[e] >= 0:
             continue
@@ -151,10 +187,23 @@ def semicoarsen(mesh: Mesh, axis: int):
         parent[e], child_pos[e] = pe, 0
         parent[mate], child_pos[mate] = pe, 1
         lows.append(e)
+        mates.append(mate)
     lows = np.asarray(lows, dtype=np.int64)
+    mates = np.asarray(mates, dtype=np.int64)
     extents = mesh.extent[lows].copy()
     extents[:, axis] *= 2.0
-    coarse = from_boxes(mesh.lower[lows].copy(), extents)
+    jac = shift = corners = None
+    if mesh.jac is not None:
+        jac, shift = mesh.jac[lows], mesh.shift[lows]
+    if mesh.corners is not None:
+        # coarse corner c: low-side corners from the low mate, high-side
+        # from the high mate (exact for hierarchy-compatible Q1)
+        nc = 2**mesh.dim
+        high = ((np.arange(nc) >> (mesh.dim - 1 - axis)) & 1).astype(bool)
+        corners = np.where(high[None, :, None], mesh.corners[mates],
+                           mesh.corners[lows])
+    coarse = from_boxes(mesh.lower[lows].copy(), extents, jac=jac,
+                        shift=shift, corners=corners)
     fine_linked = replace(mesh, parent=parent, child_pos=child_pos,
                           parent_mesh=coarse)
     return fine_linked, coarse

@@ -3,8 +3,11 @@
 Port of ``hpdg_tpu.mesh.structured`` for box meshes (host-side numpy):
 a mesh is a set of static arrays — per-element ``lower``/``extent``
 boxes plus precomputed interior and boundary face lists — built once on
-the host.  General geometry (``jac``/``shift``/``corners``) and the
-native C++ face matcher wait for later items of the port (ROADMAP).
+the host.  First-class general geometry is layered on top as mesh data:
+per-element affine maps (``jac``/``shift``) or genuinely trilinear Q1
+corner interpolation (``corners``), see ``mesh/geometry.py``; the
+parametric boxes stay the topology carrier.  The native C++ face matcher
+waits for a later item of the port (ROADMAP).
 
 Interior faces are stored with the convention: the *inside* element is on
 the low side of the face, so the unit normal (pointing inside->outside)
@@ -25,9 +28,19 @@ class Faces:
     ``nc_code`` encodes non-conforming (hanging-node) faces from 2:1
     refinement: 0 = conforming; otherwise
     ``1 + subpos + 2^(dim-1) * coarse_is_outside`` (see
-    ``hpdg_tpu.mesh.structured.Faces``).  The chart fields keep the
-    reference's defaults (the classic identity contract), so the face
-    grouping keys of ``assemble.plan`` are the reference's.
+    ``hpdg_tpu.mesh.structured.Faces``).
+
+    General (twist-tolerant) face charts: the defaults encode the
+    classic contract above; unstructured imports whose cells meet with
+    twisted faces (``geometry.from_cell_vertices``) fill them per face.
+    ``in_side`` is the side of the INSIDE element's axis the face is on
+    (the shared normal is ``(2*in_side - 1) * e_axis`` in the inside
+    chart); ``out_axis``/``out_side`` give the face in the OUTSIDE
+    element's chart; ``twist`` is the tangential isometry code mapping
+    inside-face coordinates u to outside-face coordinates v: in 2D
+    ``twist`` in {0,1} = flip; in 3D ``twist = swap*4 + flip1*2 + flip0``
+    with ``(w0, w1) = (u1, u0) if swap else (u0, u1)`` and
+    ``v_t = 1 - w_t if flip_t else w_t``.  0 = identity (classic).
     """
 
     inside: np.ndarray  # (nf,) int32 element index
@@ -72,21 +85,17 @@ class Faces:
 
 def require_classic_faces(mesh, what: str) -> None:
     """Guard for code paths that assume the classic identity face
-    contract; generalized charts come with ROADMAP queue 1, item 19."""
+    contract.  The scalar IPDG pipeline (``assemble.sipg``, the
+    sum-factorized apply) handles generalized charts; paths that do not
+    thread (in_side, out_axis, out_side, twist) raise here instead of
+    silently mis-assembling."""
     if not mesh.faces.is_classic:
         raise NotImplementedError(
-            f"{what}: twisted/generalized face charts: ROADMAP queue 1, "
-            "item 19 (geometry)")
-
-
-def require_box_geometry(mesh, what: str) -> None:
-    """Guard for code paths that know only box elements: a mesh with
-    first-class geometry (affine ``jac`` or trilinear ``corners``)
-    comes with ROADMAP queue 1, item 19."""
-    if getattr(mesh, "corners", None) is not None \
-            or getattr(mesh, "jac", None) is not None:
-        raise NotImplementedError(f"{what} on meshes with geometry: "
-                                  "ROADMAP queue 1, item 19")
+            f"{what}: mesh has twisted/generalized face charts "
+            "(unstructured import with odd face orientation). "
+            "Supported there: assemble.assemble_laplace, "
+            "matrixfree.sipg_operator, the assembled matvec and "
+            "Krylov solvers.")
 
 
 @dataclass(frozen=True)
@@ -110,6 +119,18 @@ class Mesh:
     parent: np.ndarray | None = None  # (n,) int32 index into the parent mesh
     child_pos: np.ndarray | None = None  # (n,) int32 in [0, 2^dim)
     parent_mesh: "Mesh | None" = None  # the mesh ``parent`` indexes into
+    # first-class affine geometry: the physical position of a parametric
+    # point x inside element e is  shift[e] + jac[e] @ x.  None =
+    # axis-aligned boxes (physical == parametric), the default.
+    jac: np.ndarray | None = None    # (n, dim, dim) float64
+    shift: np.ndarray | None = None  # (n, dim) float64
+    # trilinear (isoparametric Q1) geometry: physical corner positions of
+    # each element's parametric box, corner index c with bit
+    # (c >> (dim-1-a)) & 1 giving the high/low side along axis a (C
+    # order, last axis fastest: the convention of refine()'s child_pos).
+    # When set, the per-point Jacobian of the multilinear corner
+    # interpolation replaces the constant jac/shift map.
+    corners: np.ndarray | None = None  # (n, 2^dim, dim) float64
 
     @property
     def n_elements(self) -> int:
@@ -117,7 +138,13 @@ class Mesh:
 
     @property
     def volumes(self) -> np.ndarray:
-        return np.prod(self.extent, axis=1)
+        vols = np.prod(self.extent, axis=1)
+        if self.corners is not None:
+            from hpdg_tpu_torch.mesh import geometry as _geo
+            return vols * _geo.mean_detj_q1(self)
+        if self.jac is not None:
+            vols = vols * np.abs(np.linalg.det(self.jac))
+        return vols
 
     def face_measure(self) -> np.ndarray:
         """Measure of each interior face = measure of the intersection
@@ -292,7 +319,8 @@ def _validate_unmatched(lower, extent, bfaces: BoundaryFaces, tol: float):
 
 def from_boxes(lower: np.ndarray, extent: np.ndarray, parent=None,
                child_pos=None, parent_mesh=None,
-               validate: bool = True) -> Mesh:
+               validate: bool = True,
+               jac=None, shift=None, corners=None) -> Mesh:
     """Mesh of axis-aligned boxes, faces matched by the numpy matcher.
     ``validate`` checks that no unmatched faces look interior
     (overlapping opposite-facing "boundary" faces) and raises instead of
@@ -311,7 +339,8 @@ def from_boxes(lower: np.ndarray, extent: np.ndarray, parent=None,
         _validate_unmatched(lower, extent, bfaces, float(extent.min() * 1e-6))
     return Mesh(dim=lower.shape[1], lower=lower, extent=extent, faces=faces,
                 bfaces=bfaces, parent=parent, child_pos=child_pos,
-                parent_mesh=parent_mesh)
+                parent_mesh=parent_mesh, jac=jac, shift=shift,
+                corners=corners)
 
 
 def structured(cells, lower=None, upper=None, mask=None) -> Mesh:
@@ -366,9 +395,22 @@ def refine(mesh: Mesh, marks: np.ndarray | None = None) -> Mesh:
     # stencil kernel's neighbour strides rely on (ops.uniform_stencil)
     q = np.rint(child_lower / (child_extent.min() * 0.5)).astype(np.int64)
     order = np.lexsort(tuple(q[:, a] for a in range(dim - 1, -1, -1)))
+    # children inherit the parent's affine map verbatim (the parametric
+    # child box is a subset of the parent box, so the same map applies)
+    jac = shift = corners = None
+    if mesh.jac is not None:
+        jac = np.repeat(mesh.jac, nc, axis=0)[order]
+        shift = np.repeat(mesh.shift, nc, axis=0)[order]
+    if mesh.corners is not None:
+        # a trilinear map restricted to a child sub-box is trilinear with
+        # corner values = parent map evaluated at the child's corners
+        from hpdg_tpu_torch.mesh import geometry as _geo
+        corners = _geo.q1_child_corners(
+            mesh.corners, parent, child_pos)[order]
     return from_boxes(child_lower[order], child_extent[order],
                       parent=parent[order], child_pos=child_pos[order],
-                      parent_mesh=mesh)
+                      parent_mesh=mesh, jac=jac, shift=shift,
+                      corners=corners)
 
 
 def hierarchy(base: Mesh, levels: int) -> list[Mesh]:

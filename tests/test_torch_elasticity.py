@@ -8,8 +8,8 @@
   symmetry;
 * the blocks of elements that see the same faces are bitwise equal (what
   the class-deduplicated patch smoother verifies);
-* meshes with first-class geometry are refused, naming their ROADMAP
-  item.
+* meshes with first-class geometry are taken (the same matrix as the
+  reference's); twisted face charts are refused, as in the reference.
 """
 
 import types
@@ -119,10 +119,21 @@ def test_equal_blocks_for_equal_surroundings():
 
 
 def test_geometry_meshes_are_refused():
-    tm = tmesh.structured((2, 2))
-    fake = types.SimpleNamespace(**{f: getattr(tm, f) for f in (
-        "dim", "lower", "extent", "faces", "bfaces")},
-        n_elements=tm.n_elements, jac=np.eye(2))
-    tb = TBasis(fake, np.full(4, 1))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        t_elast(tb, device=CPU)
+    """A mesh with first-class geometry is NOT refused: the same call
+    assembles the reference's matrix.  What stays refused is a mesh with
+    twisted face charts, as in the reference."""
+    from hpdg_tpu.mesh import geometry as rgeo
+    from hpdg_tpu_torch.mesh import geometry as tgeo
+    shear = np.array([[1.0, 0.4], [0.1, 0.9]])
+    rm = rgeo.affine_image(rmesh.structured((2, 2)), shear)
+    tm = tgeo.affine_image(tmesh.structured((2, 2)), shear)
+    rb, tb = RBasis(rm, np.full(4, 1)), TBasis(tm, np.full(4, 1))
+    RA, TA = r_elast(rb), t_elast(tb, device=CPU)
+    assert_same_pattern(RA.pattern, TA.pattern)
+    assert_close(RA.values, TA.values, 1e-12)
+    twisted = types.SimpleNamespace(**{f: getattr(tm, f) for f in (
+        "dim", "lower", "extent", "bfaces", "jac", "shift", "corners")},
+        n_elements=tm.n_elements,
+        faces=types.SimpleNamespace(is_classic=False))
+    with pytest.raises(NotImplementedError, match="twisted"):
+        t_elast(TBasis(twisted, np.full(4, 1)), device=CPU)

@@ -9,11 +9,10 @@ the largest entry.
 * the batched projected scalar GS (bounds with ±inf);
 * three steps of matrix-free projected block Jacobi and two of the
   nonlinear block Jacobi with an exact local solver;
-* meshes with geometry are refused, naming their ROADMAP item, and a
-  CPU-only call without ``device="cpu"`` raises.
+* meshes with geometry are taken (affine and trilinear: the
+  reference's blocks), and a CPU-only call without ``device="cpu"``
+  raises.
 """
-
-import types
 
 import jax
 import jax.numpy as jnp
@@ -170,16 +169,28 @@ def test_matrix_free_jacobi_drivers_match_reference(cells, degrees):
 
 
 def test_geometry_meshes_are_refused():
+    """Meshes with first-class geometry are NOT refused: affine maps
+    scale the mass blocks by |det A|, trilinear ones integrate the
+    per-point |det J|, as the reference does."""
+    from hpdg_tpu.mesh import geometry as rgeo
+    from hpdg_tpu_torch.mesh import geometry as tgeo
     tm = tmesh.structured((2, 2))
-    for field in ("jac", "corners"):
-        fake = types.SimpleNamespace(**{f: getattr(tm, f) for f in (
-            "dim", "lower", "extent", "faces", "bfaces")},
-            n_elements=tm.n_elements, **{field: np.eye(2)})
-        tb = TBasis(fake, np.full(4, 1))
-        with pytest.raises(NotImplementedError, match="item 19"):
-            tj.mass_diagonal_blocks(tb, device=CPU)
-        with pytest.raises(NotImplementedError, match="item 19"):
-            tj.weighted_mass_diagonal_blocks(tb, weight, device=CPU)
+    shear = np.array([[1.0, 0.4], [0.1, 0.9]])
+    bend = lambda x: x + 0.1 * np.sin(3.0 * x[..., ::-1])  # noqa: E731
+    pairs = [(rgeo.affine_image(rmesh.structured((2, 2)), shear),
+              tgeo.affine_image(tm, shear)),
+             (rgeo.isoparametric(rmesh.structured((2, 2)), bend),
+              tgeo.isoparametric(tm, bend))]
+    for rg, tg in pairs:
+        rb, tb = RBasis(rg, np.full(4, 2)), TBasis(tg, np.full(4, 2))
+        assert_close(npd(rj.mass_diagonal_blocks(rb)),
+                     tj.mass_diagonal_blocks(tb, device=CPU), 1e-12)
+        assert_close(npd(rj.weighted_mass_diagonal_blocks(rb, weight)),
+                     tj.weighted_mass_diagonal_blocks(tb, weight,
+                                                      device=CPU), 1e-12)
+        assert_close(npd(rj.heat_diagonal_blocks(rb, dirichlet=True)),
+                     tj.heat_diagonal_blocks(tb, dirichlet=True,
+                                             device=CPU), 1e-12)
     if not torch.cuda.is_available():
         # the factories run on the card unless asked for the CPU
         with pytest.raises(RuntimeError, match="device"):

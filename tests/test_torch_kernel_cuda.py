@@ -142,7 +142,9 @@ def test_solve_linear_mf_in_f64_on_card(dev):
 
 def test_use_kernel_raises_where_k1_cannot_take_a_level(dev):
     """With ``use_kernel=True`` a level K1 cannot take raises on the
-    card: an f64 cycle, a mesh with hanging faces; no fallback."""
+    card: an f64 cycle, a mesh with hanging faces, a mesh with
+    first-class geometry; no fallback."""
+    from hpdg_tpu_torch.mesh import geometry as geo
     from hpdg_tpu_torch.mesh.adaptive import refine_local
 
     meshes = tmesh.hierarchy(tmesh.structured((2, 2, 2)), 1)
@@ -157,3 +159,9 @@ def test_use_kernel_raises_where_k1_cannot_take_a_level(dev):
     with pytest.raises(ValueError):
         matrixfree_multigrid_solver(tl, use_kernel=True, dtype=torch.float32,
                                     device=dev, **KW)
+    sheared = [geo.affine_image(meshes[0], np.eye(3) + 0.2 * np.eye(3, k=1))]
+    sheared.append(tmesh.refine(sheared[0]))
+    tg = DGBasis(sheared[-1], np.full(sheared[-1].n_elements, 2))
+    with pytest.raises(ValueError, match="geometry"):
+        matrixfree_multigrid_solver(tg, meshes=sheared, use_kernel=True,
+                                    dtype=torch.float32, device=dev, **KW)

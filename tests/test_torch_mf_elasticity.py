@@ -5,8 +5,8 @@ apply AND against the port's own assembled matvec (the same operator by
 an independent route), in 2D and 3D, uniform and mixed degrees, a
 ``refine_local`` mesh with hanging faces, Dirichlet on and off, both
 penalty scalings and ``include_bulk=False``; the f32 apply at 1e-5;
-``elasticity_diagonal_blocks``; the refusals (geometry, twisted charts,
-no card without ``device="cpu"``).
+``elasticity_diagonal_blocks``; a mesh with geometry is taken, twisted
+charts and a missing card without ``device="cpu"`` are refused.
 """
 
 import types
@@ -115,16 +115,23 @@ def test_elasticity_diagonal_blocks_match_reference(case):
 
 
 def test_refusals():
+    """A mesh with first-class geometry is taken (the reference's
+    apply); twisted face charts are refused, as in the reference."""
+    from hpdg_tpu.mesh import geometry as rgeo
+    from hpdg_tpu_torch.mesh import geometry as tgeo
     tm = tmesh.structured((2, 2))
-    fake = types.SimpleNamespace(**{f: getattr(tm, f) for f in (
-        "dim", "lower", "extent", "faces", "bfaces")},
-        n_elements=tm.n_elements, jac=np.eye(2))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        t_op(TBasis(fake, np.full(4, 1)), device=CPU)
+    shear = np.array([[1.0, 0.4], [0.1, 0.9]])
+    rb = RBasis(rgeo.affine_image(rmesh.structured((2, 2)), shear),
+                np.full(4, 1))
+    tb = TBasis(tgeo.affine_image(tm, shear), np.full(4, 1))
+    x = rand_vec(rb, 3, ncomp=2)
+    assert_close(r_op(rb, dirichlet=True)(jx(x)),
+                 t_op(tb, dirichlet=True, device=CPU)(
+                     convert.bucket_dict(x, device=CPU)), 1e-12)
     twisted = types.SimpleNamespace(**{f: getattr(tm, f) for f in (
         "dim", "lower", "extent", "bfaces")}, n_elements=tm.n_elements,
         faces=types.SimpleNamespace(is_classic=False))
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(NotImplementedError, match="twisted"):
         t_op(TBasis(twisted, np.full(4, 1)), device=CPU)
     if not torch.cuda.is_available():
         # the entry point runs on the card unless asked for the CPU
