@@ -122,6 +122,38 @@ Phases (any failure ends the run with a nonzero exit code):
    ``refine_local``, ``assemble_elasticity`` and
    ``sipg_diagonal_blocks``; the import's seconds.
 
+14. the CG spaces, the DG->CG coarse path and the line smoother, four
+   sub-phases:
+   (a) the anisotropic line multigrid of
+   ``examples/anisotropic_line_mg.py`` at full size: unit cube, cells
+   (64, 16, 16) (4:1 stretched), p=3 (1,048,576 dofs), penalty 6,
+   "normal", Dirichlet, assembled on the card; 8 f64 cycles from zero of
+   ``multigrid_solver(smoother="gs")`` and ``(smoother="line")`` with
+   the per-cycle contraction (asserts line < gs), the line factors' host
+   seconds and tables, profiler windows of one line-smoothed cycle and
+   one line solve; then ``api.solve_linear(method="onchip",
+   smoother="line")`` host-verified <= 1e-8;
+   (b) 16^3 p=4 Poisson (512,000 dofs, p-levels only): the conforming
+   and the hanging-node DG->CG transfer of the p=1 level (4,913
+   vertices, the latter's vertex-by-box search timed), then
+   ``api.solve_linear(method="onchip")`` with ``coarse="gs"`` (what
+   "auto" picks) and ``coarse="dgcg"``, each host-verified <= 1e-8, with
+   the coarse set-up seconds, cycles and seconds per cycle;
+   (c) ``cg_basis(m, 2)`` on 13c's O-grid (not imported again):
+   ``cg_laplace_operator(dirichlet=True)`` against the SpMV of
+   ``assemble_cg_laplace`` (1e-12), their times and launches, plain CG
+   to 1e-10 verified <= 1e-8 by the host f64 matrix, the nodal agreement
+   with 13c's DG solution, and the refusal of ``dg_to_cg_transfer`` on
+   per-element charts (ROADMAP R9);
+   (d) ``models.HeatProblem`` on 32^3 p=2 (884,736 dofs) with the
+   DG->CG coarse solve, dt 0.01, 5 implicit-Euler steps, each
+   host-verified <= 1e-8 and dissipating;
+   ``SolverCheckpointManager(max_to_keep=3)`` saving every step and a
+   bitwise restore; ``write_vtu`` of the last state into a temporary
+   directory (its size; then removed); ``gridfunction.evaluate`` at 1,000
+   seeded points, card against host (1e-12); step times by
+   ``utils.Timer``.
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout, the script exits nonzero and prints no result.
@@ -1672,6 +1704,366 @@ def geometry_import(dev, nb: int = 16, layers: int = 16, p: int = 2):
                   f"{str(e)[:70]}...", flush=True)
         else:
             raise AssertionError(f"geometry 13c: {tag} did not refuse")
+    return dict(mesh=m, x=x, p=p)
+
+
+def _host_rel(pattern, vals: dict, x: dict, b: dict) -> float:
+    """||b - A x|| / ||b|| in host numpy f64 (``host_matvec``)."""
+    Ax = host_matvec(pattern, vals, x)
+    return float(np.sqrt(sum(((b[k] - Ax[k]) ** 2).sum() for k in Ax))
+                 / np.sqrt(sum((v ** 2).sum() for v in b.values())))
+
+
+def _to_host(x: dict) -> dict:
+    return {k: v.detach().cpu().double().numpy() for k, v in x.items()}
+
+
+def _sines(x):
+    """3 pi^2 sin(pi x) sin(pi y) sin(pi z): -Laplace of the product."""
+    return 3 * torch.pi**2 * (torch.sin(torch.pi * x[..., 0])
+                              * torch.sin(torch.pi * x[..., 1])
+                              * torch.sin(torch.pi * x[..., 2]))
+
+
+def line_mg(dev, cells=(64, 16, 16), p: int = 3, cycles: int = 8):
+    """Phase 14a: the anisotropic line multigrid of
+    ``examples/anisotropic_line_mg.py`` at full size: 4:1 cells, the
+    assembled p-multigrid with colored block-GS and with line smoothing,
+    f64 cycles from zero, then the line-smoothed verified solve (f32
+    cycles in the f64 refinement).  The
+    p=1 level (131,072 dofs at full size) takes the DG->CG coarse solve:
+    the default 40-sweep GS coarse solve contracts by 0.98-0.99 per cycle
+    there, and h-levels of Galerkin SIPG matrices by 0.95-0.98."""
+    from hpdg_tpu_torch.assemble import assemble_laplace, l2_functional
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.blocks import api
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.mesh import structured
+    from hpdg_tpu_torch.solvers import lines
+    from hpdg_tpu_torch.solvers.multigrid import multigrid_solver
+
+    kw = dict(penalty=6.0, dirichlet=True, penalty_scaling="normal")
+    torch.cuda.reset_peak_memory_stats(dev)
+    m = structured(cells)
+    basis = DGBasis(m, np.full(m.n_elements, p, dtype=np.int32))
+    t0 = time.perf_counter()
+    A = assemble_laplace(basis, device=dev, **kw)
+    b = l2_functional(basis, _sines, device=dev)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    A32 = bm.BlockSparseMatrix(A.pattern, A.dim, {k: v.float() for k, v
+                                                   in A.values.items()})
+    b32 = {k: v.float() for k, v in b.items()}
+    nb = float(bv.norm(b))
+    a_gb = sum(v.numel() * v.element_size() for v in A.values.values()) / 1e9
+    print(f"14a line MG cells={cells} p={p}: dofs={basis.ndof} "
+          f"assembly_s={t_asm:.2f} A64_GB={a_gb:.3f}", flush=True)
+
+    # every factorization the hierarchy builds: host seconds, its level's
+    # dofs and tables (the solver imports the module attribute per build)
+    log = []
+    factor = lines.line_tridiag_factor
+
+    def logged(M, bas, axis=0, lines=None):
+        t = time.perf_counter()
+        fac = factor(M, bas, axis=axis, lines=lines)
+        log.append(dict(s=time.perf_counter() - t, ndof=bas.ndof, axis=axis,
+                        host_gb=sum(fac[k].nbytes for k in ("Sinv", "W", "U"))
+                        / 1e9, fac=fac))
+        return fac
+
+    lines.line_tridiag_factor = logged
+    try:
+        rates, hists = {}, {}
+        for smoother in ("gs", "line"):
+            log.clear()
+            t0 = time.perf_counter()
+            # f64 cycles: f32 ones stall near the f32 floor (2.4e-4 of
+            # ||b|| at (32, 8, 8) p=2 on the CPU) within 4 line cycles,
+            # and the rate would measure the floor
+            step, data = multigrid_solver(basis, A, smoother=smoother,
+                                          coarse="dgcg", jacobi_damping=1.0)
+            torch.cuda.synchronize()
+            t_setup = time.perf_counter() - t0
+            x, hist = bv.zeros_like(b), []
+            t0 = time.perf_counter()
+            for _ in range(cycles):
+                x = step(x, b)
+                hist.append(float(bv.norm(bv.sub(b, bm.matvec(A, x)))) / nb)
+            t_cyc = (time.perf_counter() - t0) / cycles
+            rates[smoother] = (hist[-1] / hist[0]) ** (1.0 / (cycles - 1))
+            hists[smoother] = hist
+            per = [hist[i] / hist[i - 1] for i in range(1, cycles)]
+            print(f"14a {smoother:>4}: smoothers={data.smoothers} "
+                  f"coarse={data.coarse} setup_s={t_setup:.2f} "
+                  f"s_per_cycle={t_cyc:.4f} rate/cycle="
+                  f"{rates[smoother]:.4f} per-cycle contraction "
+                  f"{['%.3f' % c for c in per]} history "
+                  f"{['%.2e' % h for h in hist]}", flush=True)
+            if smoother == "line":
+                for e in log:
+                    print(f"14a line factor: level dofs={e['ndof']} axis="
+                          f"{e['axis']} host_s={e['s']:.2f} tables host f64 "
+                          f"GB={e['host_gb']:.3f} (card f32 "
+                          f"{e['host_gb'] / 2:.3f})", flush=True)
+                print_profile("14a one line-smoothed f64 V-cycle",
+                              profile_apply(lambda: step(x, b), reps=1),
+                              unit="cycle")
+                fine = max(log, key=lambda e: e["ndof"])
+                solve = lines.line_solve(fine["fac"], dtype=torch.float32,
+                                         device=dev)
+                print_profile(f"14a one line solve (K={fine['fac']['dims'][1]}"
+                              f" positions, {fine['fac']['dims'][0]} lines)",
+                              profile_apply(lambda: solve(b32), reps=3),
+                              unit="solve")
+                log.clear()
+            del step, data
+        if not all(np.isfinite(h).all() for h in hists.values()) \
+                or not rates["line"] < rates["gs"]:
+            raise AssertionError(f"14a: line rate {rates['line']:.4f} does "
+                                 f"not beat gs {rates['gs']:.4f}")
+        print(f"14a contraction per cycle at {basis.ndof} dofs: line "
+              f"{rates['line']:.4f} < gs {rates['gs']:.4f}", flush=True)
+
+        x, info = api.solve_linear(basis, A, b, tol=1e-8, maxiter=80,
+                                   method="onchip", smoother="line",
+                                   coarse="dgcg", jacobi_damping=1.0)
+        print(f"14a api.solve_linear(onchip, line): steps={info['steps']} "
+              f"cycles={info['cycles']} solve_s={info['seconds']:.2f} "
+              f"host_verified_rel_residual={info['rel_residual']:.3e} "
+              f"factor_host_s={sum(e['s'] for e in log):.2f} "
+              f"peak_mem_GB={_peak_gb(dev):.2f}", flush=True)
+        if not (info["verified"] and info["rel_residual"] <= 1e-8):
+            raise AssertionError("14a: the line-smoothed solve is not "
+                                 f"verified ({info['rel_residual']:.3e})")
+    finally:
+        lines.line_tridiag_factor = factor
+        log.clear()
+
+
+def dgcg_path(dev, n: int = 16, p: int = 4):
+    """Phase 14b: the DG->CG coarse path on an n^3 p-lattice beside the
+    GS coarse solve that ``coarse="auto"`` picks there."""
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.blocks import api
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.mesh import structured
+    from hpdg_tpu_torch.solvers import multigrid as mg
+    from hpdg_tpu_torch.transfer import dgtocg
+
+    m = structured((n,) * 3)
+    basis = DGBasis(m, np.full(m.n_elements, p, dtype=np.int32))
+    A = api.laplace(basis, penalty=PENALTY, dirichlet=True,
+                    penalty_scaling=SCALING, device=dev)
+    b = api.l2_functional(basis, _sines, device=dev)
+    A32 = bm.BlockSparseMatrix(A.pattern, A.dim, {k: v.float() for k, v
+                                                   in A.values.items()})
+    _, data = mg.multigrid_solver(basis, A32, dtype=torch.float32)
+    cb, cA = data.bases[0], data.matrices[0]
+    t0 = time.perf_counter()
+    T = dgtocg.dg_to_cg_transfer(cb)
+    t_tr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Tnc = dgtocg.dg_to_cg_transfer_nc(cb)
+    t_nc = time.perf_counter() - t0
+    if not (Tnc.n_dofs == T.n_vertices == (n + 1) ** 3
+            and np.array_equal(Tnc.wdof[:, :, 0], T.vmap)
+            and np.all(Tnc.wval[:, :, 0] == 1.0)):
+        raise AssertionError("14b: the hanging-node transfer differs from "
+                             "the conforming one on a conforming mesh")
+    print(f"14b DG->CG p-lattice {n}^3 p={p}: dofs={basis.ndof}, coarse "
+          f"DG-P1 dofs={cb.ndof}, CG-P1 vertices={T.n_vertices}, "
+          f"auto coarse={data.coarse}; dg_to_cg_transfer_s={t_tr:.3f}, "
+          f"dg_to_cg_transfer_nc_s={t_nc:.3f} (vertex x box search)",
+          flush=True)
+    for coarse in ("gs", "dgcg"):
+        t0 = time.perf_counter()
+        if coarse == "dgcg":
+            mg.dgcg_coarse_solver(cb, cA, dtype=torch.float32)
+        else:
+            mg.gs_coarse_solver(cb, cA)
+        torch.cuda.synchronize()
+        t_coarse = time.perf_counter() - t0
+        # the 40-sweep GS coarse solve of 32,768 dofs contracts slowly
+        # (about 0.94 per cycle): room for it to reach 1e-8
+        x, info = api.solve_linear(basis, A, b, tol=1e-8, maxiter=640,
+                                   method="onchip", coarse=coarse)
+        print(f"14b coarse={coarse}: coarse_setup_s={t_coarse:.3f} "
+              f"steps={info['steps']} cycles={info['cycles']} "
+              f"solve_s={info['seconds']:.2f} s_per_cycle="
+              f"{info['seconds'] / max(info['cycles'], 1):.4f} "
+              f"host_verified_rel_residual={info['rel_residual']:.3e}",
+              flush=True)
+        if not (info["verified"] and info["rel_residual"] <= 1e-8):
+            raise AssertionError(f"14b coarse={coarse} not verified "
+                                 f"({info['rel_residual']:.3e})")
+
+
+def cg_space(dev, imp: dict, k: int = 2):
+    """Phase 14c: the continuous Q_k space on 13c's imported O-grid: the
+    matrix-free apply against the assembled SpMV, plain CG verified by
+    the host f64 matrix, the CG-vs-DG nodal agreement, the R9
+    refusal."""
+    from hpdg_tpu_torch.assemble.cg import (assemble_cg_laplace,
+                                            cg_l2_functional,
+                                            cg_laplace_operator)
+    from hpdg_tpu_torch.basis.cgbasis import cg_basis
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.examples.unstructured_cg import cg_solve
+    from hpdg_tpu_torch.transfer import dgtocg
+
+    m = imp["mesh"]
+    t0 = time.perf_counter()
+    cg = cg_basis(m, k, device=dev)
+    t_basis = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Acg = assemble_cg_laplace(cg, dirichlet=True)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    op = cg_laplace_operator(cg, dirichlet=True)
+    print(f"14c CG-Q{k} on the imported O-grid ({m.n_elements} hexes): "
+          f"dofs={cg.n_dofs} per-entity {np.bincount(cg.entity_dim).tolist()}"
+          f" boundary={int(cg.boundary.sum())} cg_basis_s={t_basis:.2f} "
+          f"assemble_cg_laplace_s={t_asm:.2f} nnz={len(Acg.rows)}",
+          flush=True)
+    gen_ = torch.Generator(device=dev).manual_seed(1887)
+    v = torch.randn(cg.n_dofs, generator=gen_, dtype=torch.float64,
+                    device=dev)
+    check_rel("14c matrix-free CG apply vs assembled SpMV",
+              {k: Acg.matvec(v)}, {k: op(v)}, 1e-12)
+    for tag, fn in (("matrix-free", lambda: op(v)),
+                    ("assembled SpMV", lambda: Acg.matvec(v))):
+        ms = float(np.median(event_times(fn, 20)))
+        prof = profile_apply(fn)
+        print(f"14c {tag} f64 apply: {ms:.4f} ms (events, median of 20)"
+              + ("" if prof is None else
+                 f", {prof['launches']:.0f} launches, device "
+                 f"{prof['device_ms']:.4f} ms"), flush=True)
+
+    b = cg_l2_functional(cg, lambda x: torch.ones_like(x[..., 0]),
+                         dirichlet=True)
+    t0 = time.perf_counter()
+    x, its, rel = cg_solve(op, b, tol=1e-10, maxiter=6000)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    xh, bh = x.cpu().numpy(), b.cpu().numpy()
+    vals = Acg.vals.cpu().numpy()
+    Ax = np.bincount(Acg.rows, weights=vals * xh[Acg.cols],
+                     minlength=cg.n_dofs)
+    hrel = float(np.linalg.norm(bh - Ax) / np.linalg.norm(bh))
+    print(f"14c plain CG: iterations={its} solve_s={t_solve:.2f} "
+          f"recurrence rel={rel:.3e} host_verified_rel_residual={hrel:.3e}",
+          flush=True)
+    if not (hrel <= 1e-8 and bool(torch.isfinite(x).all())):
+        raise AssertionError(f"14c CG solve not verified ({hrel:.3e})")
+    if imp["p"] == k:
+        u_cg = cg.gather(x).cpu().numpy()
+        u_dg = imp["x"][k].cpu().numpy()
+        agree = np.abs(u_cg - u_dg).max() / np.abs(u_dg).max()
+        print(f"14c CG vs DG (13c's SIPG solution) nodal agreement: "
+              f"max|u_cg - u_dg| / max|u_dg| = {agree:.3e}", flush=True)
+        if not agree <= 5e-2:
+            raise AssertionError(f"14c: CG and DG disagree ({agree:.3e})")
+    b1 = DGBasis(m, np.ones(m.n_elements, dtype=np.int32))
+    try:
+        dgtocg.dg_to_cg_transfer(b1)
+    except ValueError as e:
+        print(f"14c R9: dg_to_cg_transfer refuses per-element charts: "
+              f"{str(e)[:60]}...; CG-P1 by physical nodes has "
+              f"{cg_basis(m, 1, device=dev).n_dofs} dofs", flush=True)
+    else:
+        raise AssertionError("14c: dg_to_cg_transfer did not refuse")
+
+
+def presets_and_tools(dev, n: int = 32, p: int = 2, steps: int = 5):
+    """Phase 14d: ``models.HeatProblem`` stepped with checkpoints, a VTU
+    of the last state, point evaluation card against host, step times by
+    ``utils.Timer``."""
+    import shutil
+    import tempfile
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.blocks import api, gridfunction
+    from hpdg_tpu_torch.blocks.plot import write_vtu
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.mesh import structured
+    from hpdg_tpu_torch.models import HeatProblem
+    from hpdg_tpu_torch.utils import Timer
+    from hpdg_tpu_torch.utils.checkpoint import SolverCheckpointManager
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    m = structured((n,) * 3)
+    basis = DGBasis(m, np.full(m.n_elements, p, dtype=np.int32))
+    timer = Timer()
+    # the DG->CG coarse solve: the preset's default leaves the 262,144
+    # dofs of the p=1 level to a 40-sweep GS coarse solve (0.99 per
+    # cycle), and h-levels of Galerkin SIPG matrices down to 8^3 still
+    # contract by 0.97 (400 cycles reached 1.3e-5)
+    prob = HeatProblem(basis, dt=0.01, mg_kwargs=dict(coarse="dgcg"),
+                       device=dev)
+    t_setup = timer.elapsed(prob.S.values)
+    u = api.interpolate(basis, lambda x: torch.exp(-30 * (
+        (x[..., 0] - 0.5) ** 2 + (x[..., 1] - 0.5) ** 2
+        + (x[..., 2] - 0.5) ** 2)), device=dev)
+    S_h, M_h = _to_host(prob.S.values), _to_host(prob.M.values)
+    print(f"14d HeatProblem {n}^3 p={p}: dofs={basis.ndof} dt=0.01 "
+          f"coarse=dgcg (CG-P1: {(n + 1) ** 3} vertices) setup_s="
+          f"{t_setup:.2f} (assembly of A, M, S and the hierarchy)",
+          flush=True)
+    tmp = tempfile.mkdtemp(prefix="hpdg_smoke_")
+    try:
+        mgr = SolverCheckpointManager(os.path.join(tmp, "ckpt"),
+                                      max_to_keep=3)
+        e0 = float(bv.dot(u, bm.matvec(prob.M, u)))
+        for k in range(steps):
+            u_old = _to_host(u)
+            timer.reset()
+            # the correction tolerance relative to the state's energy
+            # norm: the state decays, an absolute 1e-10 would not
+            unorm = float(torch.sqrt(bv.dot(u, bm.matvec(prob.S, u))))
+            u, info = prob.advance(u, tol=1e-12 * unorm, maxiter=400)
+            t_step = timer.elapsed(u)
+            rhs = host_matvec(prob.M.pattern, M_h, u_old)
+            rel = _host_rel(prob.S.pattern, S_h, _to_host(u), rhs)
+            e = float(bv.dot(u, bm.matvec(prob.M, u)))
+            timer.reset()
+            mgr.save(k, u)
+            t_save = timer.elapsed()
+            print(f"14d step {k}: cycles={info['iterations']} "
+                  f"step_s={t_step:.3f} host_verified_rel_residual="
+                  f"{rel:.3e} ||u||_M^2={e:.8e} checkpoint_s={t_save:.3f}",
+                  flush=True)
+            if not (rel <= 1e-8 and e <= e0 + 1e-12):
+                raise AssertionError(f"14d step {k}: residual {rel:.3e} "
+                                     f"or energy {e:.3e} > {e0:.3e}")
+            e0 = e
+        got = mgr.restore(device=dev)
+        if mgr.steps() != list(range(steps - 3, steps)) or not all(
+                torch.equal(got[q], u[q]) for q in u):
+            raise AssertionError(f"14d: checkpoints {mgr.steps()} or the "
+                                 "restore is not bitwise")
+        path = os.path.join(tmp, "heat.vtu")
+        timer.reset()
+        write_vtu(path, basis, u)
+        print(f"14d checkpoints kept {mgr.steps()}, restore bitwise; "
+              f"write_vtu: {os.path.getsize(path) / 1e6:.1f} MB in "
+              f"{timer.elapsed():.2f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp)
+    pts = np.random.default_rng(1887).random((1000, 3))
+    timer.reset()
+    on_card = gridfunction.evaluate(basis, u, pts, gradient=True)
+    t_card = timer.elapsed()
+    on_host = gridfunction.evaluate(basis, {q: v.cpu() for q, v in u.items()},
+                                    pts, gradient=True)
+    err = max(np.abs(a - c).max() / np.abs(c).max()
+              for a, c in zip(on_card, on_host))
+    print(f"14d gridfunction.evaluate at 1000 points (values, gradients): "
+          f"card vs host rel {err:.3e}, {t_card:.3f} s; peak_mem_GB="
+          f"{_peak_gb(dev):.2f}", flush=True)
+    if not err <= 1e-12:
+        raise AssertionError(f"14d: evaluate card vs host {err:.3e}")
 
 
 def main() -> int:
@@ -1744,7 +2136,16 @@ def main() -> int:
     # ---- phase 13: first-class element geometry ----
     geometry_poisson(dev)
     geometry_elasticity(dev, box=box)
-    geometry_import(dev)
+    imported = geometry_import(dev)
+
+    # ---- phase 14: CG spaces, DG->CG coarse path, line smoother ----
+    t14 = time.perf_counter()
+    line_mg(dev)
+    dgcg_path(dev)
+    cg_space(dev, imported)
+    del imported
+    presets_and_tools(dev)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
 
     if "jax" in sys.modules or "hpdg_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hpdg_tpu")

@@ -32,7 +32,7 @@ from hpdg_tpu_torch.assemble.plan import (AssemblyPlan, build_plan,
                                           boundary_phys_points,
                                           face_group_tables, face_phys_points,
                                           penalty_coef, boundary_penalty_coef)
-from hpdg_tpu_torch.linalg.blockmatrix import BlockSparseMatrix
+from hpdg_tpu_torch.linalg.blockmatrix import BlockSparseMatrix, zeros_values
 from hpdg_tpu_torch.mesh import geometry as geo
 
 # Upper bound on the bytes of one per-point intermediate of the
@@ -477,3 +477,90 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
     if coef_parts:
         return vb.finish()
     return BlockSparseMatrix(plan.pattern, dim, vb.finish())
+
+
+def assemble_penalty_only(basis: DGBasis, penalty: float = 2.0,
+                          dirichlet: bool = False, dtype=torch.float64,
+                          plan: AssemblyPlan | None = None,
+                          device=None) -> BlockSparseMatrix:
+    """Only the penalty (jump-mass) part of the SIPG form,
+    sigma max(p)^2 ∫ [u][v] per face (the reference's penalty-only edge
+    assembler and face-mass variant).  Used by the penalty-damped (dual)
+    multigrid hierarchy."""
+    device = dev.resolve(device)
+    plan = plan or build_plan(basis)
+    dim = basis.mesh.dim
+    vals = zeros_values(plan.pattern, dim, dtype=dtype, device=device)
+    J = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    ix = lambda a: torch.as_tensor(a, dtype=torch.int64,  # noqa: E731
+                                   device=device)
+
+    def add(key, idx, mat):
+        vals[key].index_add_(0, ix(idx), J(mat).expand(
+            (len(idx),) + mat.shape))
+
+    for fg in plan.face_groups:
+        pi, po = fg.p_in, fg.p_out
+        pmax = max(pi, po)
+        fin, fout = face_group_tables(basis, fg, pmax + 2)
+        w = fin["weights"]
+        pen = penalty * pmax**2
+        X3 = np.einsum("iq,q,jq->ij", fin["V"], w, fout["V"])
+        add((pi, pi), fg.in_pos,
+            pen * np.einsum("iq,q,jq->ij", fin["V"], w, fin["V"]))
+        add((po, po), fg.out_pos,
+            pen * np.einsum("iq,q,jq->ij", fout["V"], w, fout["V"]))
+        add((pi, po), fg.slot12, -pen * X3)
+        add((po, pi), fg.slot21, -pen * X3.T)
+    if dirichlet:
+        for bg in plan.boundary_groups:
+            p = bg.p
+            ft = tensor.face_tables(p, dim, bg.axis, bg.side, p + 2,
+                                    family=basis.family)
+            add((p, p), bg.pos, penalty * p**2 * np.einsum(
+                "iq,q,jq->ij", ft["V"], ft["weights"], ft["V"]))
+    return BlockSparseMatrix(plan.pattern, dim, vals)
+
+
+def assemble_weighted_face_mass(basis: DGBasis, wfield: dict,
+                                penalty: float = 2.0, dtype=torch.float64,
+                                plan: AssemblyPlan | None = None,
+                                device=None) -> BlockSparseMatrix:
+    """Weighted face-mass form (the reference's weighted face-mass
+    assembler): per interior face, with a discrete DG field w,
+
+      factor(q) = -2 [w](q) {grad w . n}(q) + penalty/|f| [w](q)^2
+      M_AB[i,j] += |f| w_q factor(q) * 0.5 * phi_i^A phi_j^B   (all pairs)
+
+    ``wfield`` is a bucketed coefficient vector of the same basis; its
+    traces and normal derivatives come from the same face tables as the
+    assembly (boundary faces are skipped: the Neumann assumption)."""
+    device = dev.resolve(device)
+    plan = plan or build_plan(basis)
+    dim = basis.mesh.dim
+    vals = zeros_values(plan.pattern, dim, dtype=dtype, device=device)
+    J = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    ix = lambda a: torch.as_tensor(a, dtype=torch.int64,  # noqa: E731
+                                   device=device)
+    for fg in plan.face_groups:
+        pi, po = fg.p_in, fg.p_out
+        fin, fout = face_group_tables(basis, fg, max(pi, po) + 2)
+        w = J(fin["weights"])
+        Vi, Vo = J(fin["V"]), J(fout["V"])
+        w_in = wfield[pi].to(device=device, dtype=dtype)[ix(fg.in_pos)]
+        w_out = wfield[po].to(device=device, dtype=dtype)[ix(fg.out_pos)]
+        jump = w_in @ Vi - w_out @ Vo  # (nf, q)
+        dn_in = (w_in @ J(fin["Dn"])) * J(fg.inv_h_in)[:, None]
+        dn_out = (w_out @ J(fout["Dn"])) * J(fg.inv_h_out)[:, None]
+        avg = 0.5 * (dn_in + dn_out)
+        fac = -2.0 * jump * avg + (penalty / J(fg.fmeas))[:, None] * jump**2
+        zfac = 0.5 * J(fg.fmeas)[:, None] * w[None, :] * fac  # (nf, q)
+        vals[(pi, pi)].index_add_(0, ix(fg.in_pos), torch.einsum(
+            "fq,iq,jq->fij", zfac, Vi, Vi))
+        vals[(po, po)].index_add_(0, ix(fg.out_pos), torch.einsum(
+            "fq,iq,jq->fij", zfac, Vo, Vo))
+        vals[(pi, po)].index_add_(0, ix(fg.slot12), torch.einsum(
+            "fq,iq,jq->fij", zfac, Vi, Vo))
+        vals[(po, pi)].index_add_(0, ix(fg.slot21), torch.einsum(
+            "fq,iq,jq->fij", zfac, Vo, Vi))
+    return BlockSparseMatrix(plan.pattern, dim, vals)

@@ -252,6 +252,50 @@ def _patch_smoothers(M, bas, ncomp: int, dtype):
             sm.colored_block_gs_step(M, bas, reverse=True), "gs")
 
 
+def dgcg_coarse_solver(basis: DGBasis, A: bm.BlockSparseMatrix,
+                       dtype=torch.float64):
+    """The DG->CG conforming coarse path: one colored block-GS sweep
+    from zero, the exact correction in the continuous space
+    (``transfer.dgtocg.cg_coarse_solver``), two more GS sweeps."""
+    from hpdg_tpu_torch.transfer.dgtocg import cg_coarse_solver
+    cgc = cg_coarse_solver(basis, A, dtype=dtype)
+    gs = sm.colored_block_gs_step(A, basis)
+
+    def solve(b: dict) -> dict:
+        x = gs(bv.zeros_like(b), b)
+        x = bv.add(x, cgc(bv.sub(b, bm.matvec(A, x))))
+        for _ in range(2):
+            x = gs(x, b)
+        return x
+
+    return solve
+
+
+def _line_smoothers(M, bas, omega: float, dtype):
+    """The ``line`` branch's smoothers of one level: damped line-Jacobi
+    along each axis whose mean extent is below 0.9 of the longest (the
+    strong-coupling axes), else along the shortest; the pre-sweep takes
+    the axes in order, the post-sweep reversed (ADI-style).  Returns
+    (pre, post, name)."""
+    from hpdg_tpu_torch.solvers.lines import line_solve, line_tridiag_factor
+    ext = np.mean(bas.mesh.extent, axis=0)
+    axes = [a for a in range(bas.mesh.dim)
+            if ext[a] < 0.9 * ext.max()] or [int(np.argmin(ext))]
+    device = next(iter(M.values.values())).device
+    solves = [line_solve(line_tridiag_factor(M, bas, axis=a), dtype=dtype,
+                         device=device) for a in axes]
+
+    def sweeps(order):
+        def step(x, b):
+            for solve in order:
+                r = bv.sub(b, bm.matvec(M, x))
+                x = bv.add(x, bv.scale(omega, solve(r)))
+            return x
+        return step
+
+    return sweeps(solves), sweeps(solves[::-1]), f"line axes={axes}"
+
+
 def multigrid_solver(basis: DGBasis, A: bm.BlockSparseMatrix,
                      meshes: list | None = None, h_first: bool = False,
                      smoother: str = "gs", pre_steps: int = 3,
@@ -265,23 +309,23 @@ def multigrid_solver(basis: DGBasis, A: bm.BlockSparseMatrix,
     Returns ``(step, data)``.
 
     ``smoother``: "gs" (colored block GS), "jacobi", "lex" (the
-    reference-exact sequential sweep, forward pre / backward post) or
-    "patch" (vertex patches; see :func:`_patch_smoothers`).
+    reference-exact sequential sweep, forward pre / backward post),
+    "patch" (vertex patches; see :func:`_patch_smoothers`) or "line"
+    (damped line-Jacobi with exact block-Thomas solves along the short
+    axes, ``solvers.lines``: one line solve per axis shorter than 0.9 of
+    the longest mean extent, else along the shortest; the axes forward
+    in the pre-sweep, reversed in the post-sweep).
     ``operator_factory(level_basis) -> matrix`` re-assembles the coarse
     operators instead of restricting them.  ``penalty_matrix`` with
     ``penalty_damping != 1`` splits A = A_cons + A_pen, restricts both
     and damps the penalty part by ``penalty_damping`` per level below
     the finest.  ``coarse``: "auto" (dense up to ``DENSE_COARSE_MAX``
-    dofs, else "gs"), "dense" or "gs".
+    dofs, else "gs"), "dense", "gs" or "dgcg" (a GS sweep, the exact
+    correction in the continuous space of ``transfer.dgtocg
+    .cg_coarse_solver``, two GS sweeps).
     """
-    if smoother == "line":
-        raise NotImplementedError("smoother='line' (solvers/lines.py): "
-                                  "ROADMAP queue 1, item 20")
-    if smoother not in ("gs", "jacobi", "lex", "patch"):
+    if smoother not in ("gs", "jacobi", "lex", "patch", "line"):
         raise ValueError(smoother)
-    if coarse == "dgcg":
-        raise NotImplementedError("coarse='dgcg' (transfer/dgtocg.py): "
-                                  "ROADMAP queue 1, item 20")
     device = next(iter(A.values.values())).device
     if penalty_matrix is not None and penalty_damping != 1.0:
         A_cons = bm.add_scaled(A, penalty_matrix, -1.0)
@@ -318,6 +362,8 @@ def multigrid_solver(basis: DGBasis, A: bm.BlockSparseMatrix,
         elif smoother == "lex":
             lex = sm.LexicographicBlockGS(M, bas)
             pre, post, name = lex.forward, lex.backward, "lex"
+        elif smoother == "line":
+            pre, post, name = _line_smoothers(M, bas, jacobi_damping, dtype)
         else:
             pre, post, name = _patch_smoothers(M, bas, ncomp, dtype)
         data.smoothers.append(name)
@@ -338,6 +384,8 @@ def multigrid_solver(basis: DGBasis, A: bm.BlockSparseMatrix,
     elif coarse == "gs":
         coarse_solve = gs_coarse_solver(cb, cA,
                                         iterations=coarse_gs_iterations)
+    elif coarse == "dgcg":
+        coarse_solve = dgcg_coarse_solver(cb, cA, dtype=dtype)
     else:
         raise ValueError(coarse)
     data.coarse = coarse

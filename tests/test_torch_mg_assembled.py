@@ -315,11 +315,16 @@ def test_patch_branch_falls_back_within_the_memory_budget(monkeypatch):
 
 
 def test_refused_branches():
-    _, tms, _, tb, _, TA = problem("laplace", (2, 2), 1)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tmg.multigrid_solver(tb, TA, meshes=tms, smoother="line")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tmg.multigrid_solver(tb, TA, meshes=tms, coarse="dgcg")
+    """``line`` and ``dgcg`` answer (one cycle each against the
+    reference, on an h-hierarchy whose coarse level is DG-P1); an unknown
+    smoother raises."""
+    rms, tms, rb, tb, RA, TA = problem("laplace", (2, 2), 1)
+    for kw in (dict(smoother="line", jacobi_damping=1.0),
+               dict(coarse="dgcg")):
+        rstep, _ = rmg.multigrid_solver(rb, RA, meshes=rms, **kw)
+        tstep, td = tmg.multigrid_solver(tb, TA, meshes=tms, **kw)
+        one_cycle(rstep, tstep, rb, 1)
+    assert td.coarse == "dgcg"
     with pytest.raises(ValueError):
         tmg.multigrid_solver(tb, TA, meshes=tms, smoother="sor")
 
