@@ -154,6 +154,36 @@ Phases (any failure ends the run with a nonzero exit code):
    seeded points, card against host (1e-12); step times by
    ``utils.Timer``.
 
+15. the sharded hp layer (``hpdg_tpu_torch.parallel``) through a
+   one-process shard group of 8 shards on the card:
+   (a) the parallel Poisson example at size: cells (32, 32, 32), degrees
+   from {2, 3, 4} (seed 1887; 2,359,296 dofs), penalty 2, "normal",
+   Dirichlet, by 8 slabs and by a (2, 2, 2) device grid: the sharded
+   apply against the serial ``sumfact.sipg_operator`` (1e-11 of max|y|
+   in f64, 1e-5 in f32), the host build seconds per level of
+   ``build_hp_sharded_hmg`` (the deepest h-chain the partition allows),
+   apply times by CUDA events beside the serial apply's, launches and
+   device ms per apply (profiler), the halo exchanged per apply, and
+   ``hp_pmg_pcg_solve`` verified by the serial f64 apply (<= 1e-8,
+   at most 200 iterations), with its iterations, seconds and peak
+   memory;
+   (b) config 5's size (128^2 p=3, 262,144 dofs, f32):
+   ``solve_tnnmg_sharded`` against the serial ``solve_tnnmg`` on the
+   same A, both run to the dryrun's tolerance (1e-6; the dryrun's 40
+   iterations leave the serial solver far off at this size), with the
+   dryrun's bounds (energies 1e-6, iterates 1e-3 of max, truncated > 0);
+   (c) ``sharded_adaptive_solve(solver="mg-pcg")`` from 128^2 p=2
+   (147,456 dofs), 3 cycles, partitions "planes" and "inherit"
+   (identical meshes: the mg-pcg solver replans each cycle); on the
+   final mesh x within 1e-3 of a serial block-Jacobi PCG on the card,
+   residual <= 1e-5, eta within 1e-3;
+   (d) ``hp_heat_apply`` on (a)'s slab lattice against the serial mass +
+   dt A (f64, 1e-11);
+   (e) (a)'s slab operator built through a ``torch.distributed`` NCCL
+   group of world size 1 (a ``FileStore`` in a temporary directory):
+   its apply and 10 block-Jacobi PCG iterations equal the one-process
+   group's within 1e-13.
+
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout, the script exits nonzero and prints no result.
@@ -2066,6 +2096,309 @@ def presets_and_tools(dev, n: int = 32, p: int = 2, steps: int = 5):
         raise AssertionError(f"14d: evaluate card vs host {err:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the sharded hp layer through a shard group of 8 shards
+# ---------------------------------------------------------------------------
+
+def _deepest_h(cells, grid) -> int:
+    """The most 2x h-coarsenings ``build_hp_sharded_hmg`` accepts."""
+    h, c = 0, tuple(cells)
+    while True:
+        nxt = tuple(x // 2 for x in c)
+        if any(x % 2 for x in c) or any(nxt[a] % grid[a]
+                                        for a in range(len(grid))):
+            return h
+        h, c = h + 1, nxt
+
+
+def _median(v) -> float:
+    return float(np.median(np.asarray(v)))
+
+
+def sharded_poisson(dev, cells=(32, 32, 32), degs=(2, 3, 4), tag="15a"):
+    """Phase 15a and 15d: the parallel Poisson example at size, by slabs
+    and by a (2, 2, 2) grid of one process's 8 shards; returns the slab
+    hierarchy's fine level, its right-hand side and the probe vector."""
+    from hpdg_tpu_torch import mesh as hmesh
+    from hpdg_tpu_torch.assemble import l2_functional
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.matrixfree.sumfact import (mass_operator,
+                                                   sipg_operator)
+    from hpdg_tpu_torch.parallel import hp
+    from hpdg_tpu_torch.parallel.comm import ShardGroup
+    from hpdg_tpu_torch.parallel.heat import hp_heat_apply
+    f64, f32 = torch.float64, torch.float32
+    kw = dict(penalty=PENALTY, dirichlet=True, penalty_scaling=SCALING)
+    degrees = np.random.default_rng(1887).choice(list(degs),
+                                                 size=int(np.prod(cells)))
+    t0 = time.perf_counter()
+    basis = DGBasis(hmesh.structured(cells), degrees)
+    ser64 = sipg_operator(basis, dtype=f64, device=dev, **kw)
+    ser32 = sipg_operator(basis, dtype=f32, device=dev, **kw)
+    print(f"{tag} problem: cells {cells}, degrees {sorted(set(degs))} "
+          f"(seed 1887), {basis.ndof} dofs; serial operators built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(7)
+    xg = {p: torch.as_tensor(rng.standard_normal(
+        (basis.bucket_size(p), (p + 1) ** 3)), device=dev)
+        for p in basis.bucket_degrees}
+    xg32 = {p: v.float() for p, v in xg.items()}
+    b = l2_functional(basis, lambda x: torch.ones_like(x[..., 0]),
+                      device=dev)
+    nb = float(bv.norm(b))
+    y64 = ser64(xg)
+    group = ShardGroup(8, dev)
+    keep = None
+    for label, grid in (("slabs", None), ("blocks", (2, 2, 2))):
+        h_levels = _deepest_h(cells, grid or (8,))
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        pmg = hp.build_hp_sharded_hmg(cells, degrees, h_levels=h_levels,
+                                      group=group, device_grid=grid,
+                                      dtype=f64, **kw)
+        torch.cuda.synchronize(dev)
+        t_hier = time.perf_counter() - t
+        host = [lv.build_seconds for lv in pmg.levels]
+        print(f"{tag} {label}: device grid {pmg.levels[-1].device_grid}, "
+              f"{len(pmg.levels)} levels ({h_levels} h-levels); hierarchy "
+              f"built in {t_hier:.2f} s, host build per level (coarsest "
+              f"first) " + ", ".join(
+                  f"{lv.cells}/p{sorted(set(lv.degree_set))}: {s:.2f} s"
+                  for lv, s in zip(pmg.levels, host))
+              + f"; rest (transfers, rho estimates) "
+              f"{t_hier - sum(host):.2f} s",
+              flush=True)
+        fine = pmg.levels[-1]
+        xs = fine.scatter_global(xg, basis)
+        check_rel(f"{tag} {label} sharded apply f64 vs serial sipg_operator",
+                  y64, fine.gather_global(fine.apply(xs), basis), 1e-11)
+        fine32 = fine.astype(f32)
+        xs32 = {p: v.float() for p, v in xs.items()}
+        check_rel(f"{tag} {label} sharded apply f32 vs serial f64", y64,
+                  fine32.gather_global(fine32.apply(xs32), basis), 1e-5)
+        ms = {k: _median(event_times(fn, 10)) for k, fn in (
+            ("sharded f64", lambda: fine.apply(xs)),
+            ("serial f64", lambda: ser64(xg)),
+            ("sharded f32", lambda: fine32.apply(xs32)),
+            ("serial f32", lambda: ser32(xg32)))}
+        print(f"{tag} {label} apply ms (CUDA events, median of 10): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()), flush=True)
+        halo = fine.halo
+        print(f"{tag} {label} halo per apply: {halo['elements']} elements, "
+              f"{halo['dofs']} dofs ({halo['padded_rows']} padded rows) in "
+              f"{halo['exchanges']} exchanges", flush=True)
+        print_profile(f"{tag} {label} sharded f64",
+                      profile_apply(lambda: fine.apply(xs)))
+        print_profile(f"{tag} {label} serial f64",
+                      profile_apply(lambda: ser64(xg)))
+        bs = fine.scatter_global(b, basis)
+        iters, verified, t_solve = 24, None, 0.0
+        while True:
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            x, rel = hp.hp_pmg_pcg_solve(pmg, bs, iters=iters)
+            rel = float(rel)
+            t_solve = time.perf_counter() - t
+            r = bv.sub(b, ser64(fine.gather_global(x, basis)))
+            verified = float(bv.norm(r)) / nb
+            print(f"{tag} {label} hp_pmg_pcg_solve: {iters} iterations in "
+                  f"{t_solve:.2f} s ({1e3 * t_solve / iters:.1f} ms/it); "
+                  f"recursive rel {rel:.3e}, verified by the serial f64 "
+                  f"apply {verified:.3e}", flush=True)
+            if verified <= 1e-8 or iters >= 200:
+                break
+            need = iters * np.log(1e-9) / np.log(max(verified, 1e-300))
+            iters = int(min(200, max(2 * iters, np.ceil(need))))
+        if not verified <= 1e-8:
+            raise AssertionError(f"{tag} {label}: verified {verified:.3e}")
+        print(f"{tag} {label}: peak_mem_GB={_peak_gb(dev):.2f}", flush=True)
+        if label == "slabs":
+            keep = dict(fine=fine, xs=xs, bs=bs, degrees=degrees, cells=cells)
+        del pmg, fine32, xs32
+    # 15d: the implicit-Euler operator on the slab lattice
+    dt = 0.01
+    fine, xs = keep["fine"], keep["xs"]
+    heat = hp_heat_apply(fine, dt, dtype=f64)
+    mass = mass_operator(basis, dtype=f64, device=dev)(xg)
+    want = {p: mass[p] + dt * y64[p] for p in y64}
+    check_rel("15d hp_heat_apply vs serial mass + dt A (f64)", want,
+              fine.gather_global(heat(xs), basis), 1e-11)
+    print(f"15d heat apply ms (CUDA events, median of 10): "
+          f"{_median(event_times(lambda: heat(xs), 10)):.3f}", flush=True)
+    return keep
+
+
+def sharded_tnnmg(dev, n2: int = 128, p: int = 3, serial_its: int = 560,
+                  sharded_its: int = 120):
+    """Phase 15b: the reference's sharded-TNNMG check at config 5's size
+    (f32, f = 1, upper obstacle 0.01, penalty 2, "normal"), with the
+    dryrun's bounds: truncated > 0, iterates within 1e-3 of max, and
+    energies within 1e-6 (1 + |e|), an absolute bound of about 1e-6 at
+    |e| = 6.6e-3.  Both solvers run to its tolerance (1e-6 on the
+    correction), not to its 40 iterations: at this size the serial
+    TNNMG is still far from the solution after 40 (energy -2.43e-3
+    against -6.58e-3; the reference's serial solver gives the same
+    energy there, ``tests/tnnmg_serial_at_size.py``), the sharded one
+    takes about 60.  The serial one never meets the tolerance in f32: its
+    correction reaches its floor, about 1.5e-6, by iteration 540, hence
+    ``serial_its``."""
+    from hpdg_tpu_torch import mesh as hmesh
+    from hpdg_tpu_torch.assemble import assemble_laplace, l2_functional
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.parallel.comm import ShardGroup
+    from hpdg_tpu_torch.parallel.hp import build_hp_sharded_pmg
+    from hpdg_tpu_torch.parallel.obstacle import solve_tnnmg_sharded
+    from hpdg_tpu_torch.solvers.tnnmg import solve_tnnmg
+    f32 = torch.float32
+    cells = (n2, n2)
+    degrees = np.full(n2 * n2, p)
+    basis = DGBasis(hmesh.structured(cells), degrees)
+    A32 = assemble_laplace(basis, penalty=PENALTY, dirichlet=True,
+                           dtype=f32, penalty_scaling=SCALING, device=dev)
+    b = l2_functional(basis, lambda x: torch.ones_like(x[..., 0]),
+                      dtype=f32, device=dev)
+    lo = {q: torch.full_like(v, -torch.inf) for q, v in b.items()}
+    up = {q: torch.full_like(v, 0.01) for q, v in b.items()}
+    t = time.perf_counter()
+    x_ser, info_s = solve_tnnmg(A32, b, basis, lo, up, tol=1e-6,
+                                maxiter=serial_its)
+    torch.cuda.synchronize(dev)
+    t_ser = time.perf_counter() - t
+    t = time.perf_counter()
+    pmg = build_hp_sharded_pmg(cells, degrees, group=ShardGroup(8, dev),
+                               penalty=PENALTY, dirichlet=True, dtype=f32,
+                               coarse_cg_iters=3, penalty_scaling=SCALING)
+    t_build = time.perf_counter() - t
+    fine = pmg.levels[-1]
+    t = time.perf_counter()
+    x_sh, info_p = solve_tnnmg_sharded(
+        pmg, fine.scatter_global(b, basis), fine.scatter_global(lo, basis),
+        fine.scatter_global(up, basis), tol=1e-6, maxiter=sharded_its)
+    torch.cuda.synchronize(dev)
+    t_sh = time.perf_counter() - t
+    xg = fine.gather_global(x_sh, basis)
+    scale = max(float(v.abs().max()) for v in x_ser.values())
+    err = max(float((x_ser[q] - xg[q]).abs().max()) for q in x_ser)
+    e_ser, e_sh = info_s["energy"][-1], info_p["energy"][-1]
+    print(f"15b sharded TNNMG at {n2}^2 p={p} ({basis.ndof} dofs, f32): "
+          f"serial {info_s['iterations']} its in {t_ser:.2f} s, sharded "
+          f"{info_p['iterations']} its in {t_sh:.2f} s (build "
+          f"{t_build:.2f} s); energy serial {e_ser:.9e} sharded "
+          f"{e_sh:.9e} (difference {abs(e_ser - e_sh):.3e}, bound "
+          f"{1e-6 * (1.0 + abs(e_ser)):.3e} absolute); iterate err "
+          f"{err:.3e} of max {scale:.3e} (bound {1e-3 * scale:.3e}); "
+          f"truncated max {max(info_p['truncated'])}", flush=True)
+    for name, info in (("serial", info_s), ("sharded", info_p)):
+        print(f"15b {name} correction every 10 its: "
+              f"{[f'{v:.2e}' for v in info['correction'][::10]]}, last "
+              f"{info['correction'][-1]:.2e}", flush=True)
+    if not (max(info_p["truncated"]) > 0 and err <= 1e-3 * scale
+            and abs(e_ser - e_sh) <= 1e-6 * (1.0 + abs(e_ser))):
+        raise AssertionError("15b: sharded TNNMG outside the dryrun's bounds")
+
+
+def sharded_adaptive(dev, n: int = 128, cycles: int = 3, cg_iters: int = 30):
+    """Phase 15c: ``sharded_adaptive_solve(solver="mg-pcg")`` from n x n
+    p=2, checked on the final mesh against a serial PCG on the card."""
+    from hpdg_tpu_torch import mesh as hmesh
+    from hpdg_tpu_torch.assemble import assemble_laplace, l2_functional
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.matrixfree.norms import jump_indicator
+    from hpdg_tpu_torch.parallel.adaptive import sharded_adaptive_solve
+    from hpdg_tpu_torch.parallel.comm import ShardGroup
+    from hpdg_tpu_torch.solvers.cg import pcg
+    from hpdg_tpu_torch.solvers.smoothers import block_jacobi_preconditioner
+    f64 = torch.float64
+    m0 = hmesh.structured((n, n))
+    one = lambda x: torch.ones_like(x[..., 0])  # noqa: E731
+    meshes = []
+    for part in ("planes", "inherit"):
+        t = time.perf_counter()
+        mesh, deg, x, info = sharded_adaptive_solve(
+            m0, np.full(n * n, 2), one, group=ShardGroup(8, dev),
+            cycles=cycles, frac=0.3, penalty=PENALTY,
+            penalty_scaling=SCALING, cg_iters=cg_iters, dtype=f64,
+            solver="mg-pcg", partition=part)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t
+        reuse = info["plan_reuse"] or "none recorded (mg-pcg replans)"
+        print(f"15c mg-pcg partition={part}: {secs:.2f} s for {cycles} "
+              f"cycles; elements {info['n_elements']}, balance "
+              f"{[round(v, 4) for v in info['balance']]}, plan reuse "
+              f"{reuse}, eta {[f'{v:.6e}' for v in info['eta']]}, residual "
+              f"{[f'{v:.3e}' for v in info['residual']]}", flush=True)
+        meshes.append((mesh, deg, x, info))
+    (mesh, deg, x, info), (mesh2, deg2, _, _) = meshes
+    if not (np.array_equal(mesh.lower, mesh2.lower)
+            and np.array_equal(deg, deg2)):
+        raise AssertionError("15c: mg-pcg meshes depend on the partition")
+    gba = DGBasis(mesh, deg)
+    Aa = assemble_laplace(gba, penalty=PENALTY, dirichlet=True,
+                          penalty_scaling=SCALING, dtype=f64, device=dev)
+    ba = l2_functional(gba, one, dtype=f64, device=dev)
+    t = time.perf_counter()
+    x_ref, pinfo = pcg(lambda v: bm.matvec(Aa, v), ba,
+                       precond=block_jacobi_preconditioner(Aa), tol=1e-10,
+                       maxiter=20000)
+    t_ref = time.perf_counter() - t
+    scale = max(float(v.abs().max()) for v in x_ref.values())
+    err = max(float((x_ref[q] - x[q]).abs().max()) for q in x_ref)
+    eta_ref = float(torch.sqrt(jump_indicator(
+        gba, penalty=PENALTY, penalty_scaling=SCALING, dtype=f64,
+        device=dev)(x_ref).sum()))
+    print(f"15c final mesh {mesh.n_elements} elements ({gba.ndof} dofs): "
+          f"serial block-Jacobi PCG {pinfo['iterations']} its in "
+          f"{t_ref:.2f} s; x err {err:.3e} of max {scale:.3e}; residual "
+          f"{info['residual'][-1]:.3e}; eta {info['eta'][-1]:.9e} vs serial "
+          f"{eta_ref:.9e}", flush=True)
+    if not (err <= 1e-3 * scale and info["residual"][-1] <= 1e-5
+            and abs(eta_ref - info["eta"][-1]) <= 1e-3 * eta_ref):
+        raise AssertionError("15c: sharded adaptive outside the bounds")
+
+
+def rank_route(dev, keep: dict):
+    """Phase 15e: the same 8 slabs through a ``torch.distributed`` group
+    of world size 1 (NCCL on the card) against the one-process group."""
+    import tempfile
+    import torch.distributed as dist
+    from hpdg_tpu_torch.parallel import hp
+    from hpdg_tpu_torch.parallel.comm import ShardGroup
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    fine, xs, bs = keep["fine"], keep["xs"], keep["bs"]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            g = ShardGroup.from_process_group(8, device=dev)
+            prob = hp.build_hp_sharded(keep["cells"], keep["degrees"],
+                                       group=g, penalty=PENALTY,
+                                       dirichlet=True,
+                                       penalty_scaling=SCALING,
+                                       dtype=torch.float64)
+            rels = []
+            for what, a, b in (
+                    ("apply", fine.apply(xs), prob.apply(xs)),
+                    ("10 PCG iterations", hp.hp_pcg_solve(fine, bs, 10)[0],
+                     hp.hp_pcg_solve(prob, bs, 10)[0])):
+                scale = max(float(v.abs().max()) for v in a.values())
+                rel = max(float((a[p] - b[p]).abs().max())
+                          for p in a) / scale
+                rels.append(rel)
+                print(f"15e {backend} world 1 vs one process, {what}: rel "
+                      f"{rel:.3e} (bound 1e-13)", flush=True)
+            ms = _median(event_times(lambda: prob.apply(xs), 10))
+            print(f"15e {backend} sharded apply ms (CUDA events, median "
+                  f"of 10): {ms:.3f}; host build {prob.build_seconds:.2f} s;"
+                  f" torch.cuda.device_count() = {torch.cuda.device_count()}",
+                  flush=True)
+        finally:
+            dist.destroy_process_group()
+    if not max(rels) <= 1e-13:
+        raise AssertionError(f"15e: rank route differs, rel {max(rels):.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2146,6 +2479,15 @@ def main() -> int:
     del imported
     presets_and_tools(dev)
     print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+
+    # ---- phase 15: the sharded hp layer (8 shards, one process) ----
+    t15 = time.perf_counter()
+    keep = sharded_poisson(dev)
+    sharded_tnnmg(dev)
+    sharded_adaptive(dev)
+    rank_route(dev, keep)
+    del keep
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
 
     if "jax" in sys.modules or "hpdg_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hpdg_tpu")

@@ -80,3 +80,23 @@ def mesh(dim: int, lower, extent, faces: dict, bfaces: dict, jac=None,
         child_pos=None if child_pos is None else i32(child_pos),
         parent_mesh=parent_mesh, jac=f64(jac), shift=f64(shift),
         corners=f64(corners))
+
+
+def sharded(x: dict, group, dtype=None) -> dict:
+    """A reference sharded bucket dict as numpy (``{p: np.asarray(a)}``,
+    the global ``[ndev * m_p, bs]`` arrays) -> this rank's rows on the
+    group's device."""
+    out = {}
+    for key, a in x.items():
+        a = np.asarray(a)
+        m = a.shape[0] // group.ndev
+        t = torch.from_numpy(np.array(group.local_rows(a, m), copy=True))
+        out[key] = t.to(device=group.device, dtype=dtype or t.dtype)
+    return out
+
+
+def unsharded(x: dict, group) -> dict:
+    """The port's sharded bucket dict -> the global ``[ndev * m_p, bs]``
+    arrays as numpy (every rank gets all rows)."""
+    return {key: group.all_rows(t).detach().cpu().numpy()
+            for key, t in x.items()}

@@ -5,12 +5,15 @@ strong coupling runs along the short axis; element-block smoothers leave
 the along-line error modes undamped and multigrid degrades.  This solves
 3D SIPG Poisson on 4:1-stretched cells twice, element-block GS against
 line smoothing (exact batched block-Thomas solves along the short axis,
-``solvers.lines``), and prints both convergence histories.  The
-reference's ``--sharded`` branch needs the port's parallel layer
-(ROADMAP queue 1, item 21) and raises until then.
+``solvers.lines``), and prints both convergence histories.  With
+``--sharded 1`` the same problem runs through the sharded hp-multigrid
+(``parallel.hp.build_hp_sharded_hmg``, semicoarsening the line axis,
+h-levels first) over a one-process group of ``--shards`` shards
+(default one per visible card), Chebyshev over block Jacobi against
+Chebyshev over the sharded line preconditioner.
 
     python -m hpdg_tpu_torch.examples.anisotropic_line_mg --cells 8,2,2 \
-        --p 2 --cycles 8 [--device cpu]
+        --p 2 --cycles 8 [--sharded 1 --shards 8] [--device cpu]
 """
 
 from __future__ import annotations
@@ -62,6 +65,47 @@ def run_serial(cells=(8, 2, 2), p: int = 2, cycles: int = 8,
     return out
 
 
+def run_sharded(cells=(16, 8, 8), p: int = 2, cycles: int = 8, shards=None,
+                device=None) -> dict:
+    """``{smoother: (rate per cycle, history)}`` for ``cheb`` and
+    ``line`` through the sharded hierarchy."""
+    from hpdg_tpu_torch.parallel.comm import ShardGroup
+    from hpdg_tpu_torch.parallel.hp import build_hp_sharded_hmg, hp_norm
+    device = dev.resolve(device)
+    ndev = int(shards) if shards else max(torch.cuda.device_count(), 1)
+    group = ShardGroup(ndev, device=device)
+    n = int(np.prod(cells))
+    # semicoarsen the stretched (line) axis down to isotropy
+    lax = int(np.argmax(cells))
+    chain = [tuple(cells)]
+    while chain[0][lax] > 2 * min(cells):
+        c = list(chain[0])
+        c[lax] //= 2
+        chain.insert(0, tuple(c))
+    gbasis = DGBasis(hmesh.structured(cells), np.full(n, p))
+    b_dict = rhs(gbasis, device=device)
+    out = {}
+    for smoother in ("cheb", "line"):
+        pmg = build_hp_sharded_hmg(cells, np.full(n, p), cells_chain=chain,
+                                   h_first=True, smoother=smoother,
+                                   dtype=torch.float64, group=group, **KW)
+        fine = pmg.levels[-1]
+        print(f"sharded {smoother:>4}: device grid {fine.device_grid}")
+        b = fine.scatter_global(b_dict, gbasis)
+        x = {q: torch.zeros_like(v) for q, v in b.items()}
+        nb = float(hp_norm(b, group))
+        hist = []
+        for _ in range(cycles):
+            x = pmg.step(x, b)
+            r = {q: b[q] - v for q, v in fine.apply(x).items()}
+            hist.append(float(hp_norm(r, group)) / nb)
+        rate = (hist[-1] / hist[0]) ** (1.0 / (len(hist) - 1))
+        print(f"sharded {smoother:>4}: rate/cycle {rate:.3f}  "
+              f"history {['%.1e' % h for h in hist]}")
+        out[smoother] = (rate, hist)
+    return out
+
+
 def main(argv=None):
     cfg = parse_cli(argv, help_text=__doc__)
     cells = tuple(int(c) for c in
@@ -69,8 +113,8 @@ def main(argv=None):
     p = int(cfg.get_path("p", 2))
     cycles = int(cfg.get_path("cycles", 8))
     if int(cfg.get_path("sharded", 0)):
-        raise NotImplementedError("--sharded needs the port's parallel "
-                                  "layer (ROADMAP queue 1, item 21)")
+        return run_sharded(cells, p, cycles, cfg.get_path("shards"),
+                           cfg.get_path("device"))
     return run_serial(cells, p, cycles, cfg.get_path("device"))
 
 

@@ -2,8 +2,8 @@
 
 Port of ``examples/elasticity.py`` (``models.ElasticityProblem`` on a
 refined cube).  The reference's ``--sharded`` branch (curved-domain
-elasticity over all devices) needs the port's parallel layer, ROADMAP
-queue 1, item 21, and raises until then.
+elasticity over all devices) needs the sharded elasticity operator,
+ROADMAP queue 1, item 21b, and raises until then.
 
     python -m hpdg_tpu_torch.examples.elasticity --n 2 --levels 1 --p 2 \
         [--device cpu]
@@ -48,8 +48,8 @@ def run(n: int = 2, levels: int = 1, p: int = 2, device=None) -> dict:
 def main(argv=None):
     cfg = parse_cli(argv, help_text=__doc__)
     if cfg.get_path("sharded", 0):
-        raise NotImplementedError("--sharded needs the port's parallel "
-                                  "layer (ROADMAP queue 1, item 21)")
+        raise NotImplementedError("--sharded needs the port's sharded "
+                                  "elasticity (ROADMAP queue 1, item 21b)")
     return run(cfg.get_path("n", 2), cfg.get_path("levels", 1),
                cfg.get_path("p", 2), cfg.get_path("device"))
 

@@ -1,7 +1,6 @@
 """Block smoothers for hp-multigrid.
 
-Port of ``hpdg_tpu.solvers.smoothers`` (the l1 smoothers of the
-parallel layer wait for ROADMAP queue 1, item 21):
+Port of ``hpdg_tpu.solvers.smoothers``:
 
 * damped block Jacobi: the inverses of all diagonal blocks, precomputed
   once per bucket with a batched ``torch.linalg.inv`` in f64 on the
@@ -15,7 +14,10 @@ parallel layer wait for ROADMAP queue 1, item 21):
   launches per row.  Slow by construction; it exists for residual-history
   parity;
 * Chebyshev polynomial smoothing of the block-Jacobi-preconditioned
-  operator, with a power-iteration estimate of its spectral radius.
+  operator, with a power-iteration estimate of its spectral radius;
+* the L1-regularized block Jacobi of partitioned operators (the
+  diagonal shifted by the row l1-norms of the ghost couplings), plain
+  and projected into a box.
 """
 
 from __future__ import annotations
@@ -277,5 +279,68 @@ def chebyshev_smoother(apply_fn, precond_fn, lmax: float,
             rho_old = rho_new
             x = bv.add(x, d)
         return x
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# L1-regularized smoothing (the parallel-safe smoother)
+# ---------------------------------------------------------------------------
+
+def l1_shifts(A: BlockSparseMatrix, ghost_slots: dict) -> dict:
+    """Per-scalar-row diagonal shifts: the sum over ghost-coupling blocks
+    of their row l1-norms.
+
+    ``ghost_slots[(pr, pc)]``: slots of that value bucket whose COLUMN
+    partner lives on another shard.  Returns p -> [n_p, br] shifts."""
+    out = {p: torch.zeros((A.pattern.row_sizes[p],
+                           A.values[(p, p)].shape[1]),
+                          dtype=A.values[(p, p)].dtype,
+                          device=A.values[(p, p)].device)
+           for p in A.pattern.row_sizes}
+    for (pr, pc), slots in ghost_slots.items():
+        rows, _ = A.pattern.entries[(pr, pc)]
+        slots = np.asarray(slots, np.int64)
+        vals = A.values[(pr, pc)]
+        blocks = vals[torch.as_tensor(slots, device=vals.device)]
+        out[pr].index_add_(0, torch.as_tensor(rows[slots], dtype=torch.int64,
+                                              device=vals.device),
+                           blocks.abs().sum(dim=2))
+    return out
+
+
+def _l1_inverses(A: BlockSparseMatrix, shifts: dict) -> dict:
+    """Inverses of the shifted diagonal blocks D + diag(shift), in f64,
+    returned in the blocks' dtype."""
+    out = {}
+    for p, d in extract_diagonal(A).items():
+        sh = torch.diag_embed(shifts[p].to(torch.float64))
+        out[p] = torch.linalg.inv(d.double() + sh).to(d.dtype)
+    return out
+
+
+def l1_jacobi_step(A: BlockSparseMatrix, shifts: dict, omega: float = 1.0):
+    """Damped block Jacobi on (D + diag(shift)): convergent under any
+    partitioning."""
+    Dinv = _l1_inverses(A, shifts)
+
+    def step(x, b):
+        r = bv.sub(b, matvec(A, x))
+        return bv.axpy(omega, apply_blockdiag(Dinv, r), x)
+
+    return step
+
+
+def l1_projected_jacobi_step(A: BlockSparseMatrix, shifts: dict, lo: dict,
+                             up: dict, omega: float = 1.0):
+    """Projected L1 smoother: the damped L1-regularized block-Jacobi
+    update clamped into the box [lo, up]."""
+    Dinv = _l1_inverses(A, shifts)
+
+    def step(x, b):
+        r = bv.sub(b, matvec(A, x))
+        upd = apply_blockdiag(Dinv, r)
+        return {p: torch.minimum(torch.maximum(x[p] + omega * upd[p], lo[p]),
+                                 up[p]) for p in r}
 
     return step

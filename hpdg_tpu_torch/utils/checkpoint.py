@@ -4,8 +4,15 @@ Port of ``hpdg_tpu.utils.checkpoint``: a bucketed coefficient dict is
 written with ``torch.save`` (keys stringified) beside a JSON file of the
 host-side metadata needed to rebuild the problem (degree map, mesh
 cells, iteration counter), and read back with ``torch.load`` onto a
-chosen device, bit for bit.  Restoring into per-device shardings belongs
-to the parallel layer (ROADMAP queue 1, item 21) and raises until then.
+chosen device, bit for bit.
+
+Sharded vectors (``parallel.hp.HPSharded`` layouts) are written with
+their shard group: each rank writes one file per shard it holds
+(``state.shard<s>.pt``, that shard's rows), and a restore into
+``shardings`` (``{p: parallel.comm.Sharding}``, e.g.
+``HPSharded.shardings``) reads only the files of the rank's own shards.
+A checkpoint written without a group restores into shardings by slicing
+each rank's rows out of the global array.
 """
 
 from __future__ import annotations
@@ -19,9 +26,6 @@ import torch
 
 from hpdg_tpu_torch import device as dev
 
-_SHARDED = ("restoring into shardings needs the port's parallel layer "
-            "(ROADMAP queue 1, item 21)")
-
 
 def _int_keys(d: dict) -> dict:
     out = {}
@@ -33,28 +37,65 @@ def _int_keys(d: dict) -> dict:
     return out
 
 
-def save_sharded(path, x: dict, meta: dict | None = None):
+def save_sharded(path, x: dict, meta: dict | None = None, group=None):
     """Checkpoint a bucketed vector dict and JSON-able metadata into the
-    directory ``path`` (keys of ``x`` may be ints, stored stringified)."""
+    directory ``path`` (keys of ``x`` may be ints, stored stringified).
+    ``group``: the shard group ``x`` is laid out on; each rank then
+    writes one file per shard it holds."""
     path = Path(path).absolute()
     path.mkdir(parents=True, exist_ok=True)
-    torch.save({str(k): v.detach() for k, v in x.items()}, path / "state.pt")
-    if meta is not None:
+    if group is None:
+        torch.save({str(k): v.detach() for k, v in x.items()},
+                   path / "state.pt")
+    else:
+        for i, s in enumerate(group.shards):
+            part = {}
+            for k, v in x.items():
+                m = v.shape[0] // group.L
+                part[str(k)] = v.detach()[i * m:(i + 1) * m].clone()
+            torch.save(part, path / f"state.shard{s}.pt")
+    if meta is not None and (group is None or group.rank == 0):
         (path / "meta.json").write_text(json.dumps(meta))
+    if group is not None and group.distributed:
+        import torch.distributed as dist
+        dist.barrier(group=group.pg)
 
 
 def load_sharded(path, shardings: dict | None = None, device=None):
     """Restore a checkpoint written by :func:`save_sharded` onto
-    ``device``.  Returns ``(x, meta)`` (``meta`` None if none was
-    written)."""
-    if shardings is not None:
-        raise NotImplementedError(_SHARDED)
+    ``device``, or, with ``shardings`` (``{p: Sharding}``), into this
+    rank's rows of that layout on the group's device.  Returns ``(x,
+    meta)`` (``meta`` None if none was written)."""
     path = Path(path).absolute()
-    x = _int_keys(torch.load(path / "state.pt", weights_only=True,
-                             map_location=dev.resolve(device)))
+    if shardings is not None:
+        x = _restore_sharded(path, shardings)
+    else:
+        x = _int_keys(torch.load(path / "state.pt", weights_only=True,
+                                 map_location=dev.resolve(device)))
     mf = path / "meta.json"
     meta = json.loads(mf.read_text()) if mf.exists() else None
     return x, meta
+
+
+def _restore_sharded(path: Path, shardings: dict) -> dict:
+    group = next(iter(shardings.values())).group
+    where = group.device
+    if (path / "state.pt").exists():
+        full = torch.load(path / "state.pt", weights_only=True,
+                          map_location=where)
+        return {k: group.local_rows(full[str(k)], sh.rows).clone()
+                for k, sh in shardings.items()}
+    parts = [torch.load(path / f"state.shard{s}.pt", weights_only=True,
+                        map_location=where) for s in group.shards]
+    out = {}
+    for k, sh in shardings.items():
+        rows = [part[str(k)] for part in parts]
+        if any(r.shape[0] != sh.rows for r in rows):
+            raise ValueError(f"bucket {k}: checkpoint shards hold "
+                             f"{[r.shape[0] for r in rows]} rows, the "
+                             f"layout {sh.rows}")
+        out[k] = torch.cat(rows)
+    return out
 
 
 def save_solver_state(path, x: dict, degrees, iteration: int = 0,
@@ -100,10 +141,9 @@ class SolverCheckpointManager:
 
     def restore(self, step: int | None = None,
                 shardings: dict | None = None, device=None) -> dict:
-        if shardings is not None:
-            raise NotImplementedError(_SHARDED)
         step = self.latest_step() if step is None else step
-        return load_sharded(self.path / str(step), device=device)[0]
+        return load_sharded(self.path / str(step), shardings=shardings,
+                            device=device)[0]
 
     def close(self):
         """Nothing is written in the background: saving is synchronous."""

@@ -11,7 +11,9 @@ ported examples, in f64 on the CPU.
   example tests: every printed line agrees with the reference script's,
   integers exactly and reported numbers to their printed digits
   (residuals at roundoff level only by being below 1e-8); the
-  ``--sharded`` branches raise, naming ROADMAP item 21.
+  ``--sharded`` branch of ``elasticity`` raises, naming ROADMAP item 21b,
+  and that of ``anisotropic_line_mg`` runs on a one-process shard group
+  (held against the reference in ``test_torch_parallel_examples.py``).
 """
 
 import os
@@ -262,5 +264,12 @@ def test_example_reports_match_reference(name, mod, argv, capsys):
 
 @pytest.mark.parametrize("mod", [elasticity, anisotropic_line_mg])
 def test_sharded_example_branches_wait_for_item_21(mod):
-    with pytest.raises(NotImplementedError, match="item 21"):
-        mod.main(["--sharded", "1", "--device", "cpu"])
+    if mod is elasticity:
+        with pytest.raises(NotImplementedError, match="item 21b"):
+            mod.main(["--sharded", "1", "--device", "cpu"])
+        return
+    out = mod.main(["--sharded", "1", "--cells", "8,4,4", "--p", "1",
+                    "--cycles", "2", "--shards", "2", "--device", "cpu"])
+    assert set(out) == {"cheb", "line"}
+    assert all(np.isfinite(h).all() and h[-1] < 1.0
+               for _, h in out.values())

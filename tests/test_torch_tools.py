@@ -259,8 +259,12 @@ def test_solver_state_checkpoint_roundtrip(tmp_path):
     assert y.keys() == x.keys()
     for p in x:
         assert torch.equal(y[p], torch.as_tensor(x[p]))
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tck.load_sharded(tmp_path / "t", shardings={1: None})
+    # restoring into a one-process shard layout slices its rows
+    from hpdg_tpu_torch.parallel.comm import ShardGroup, Sharding
+    g = ShardGroup(1, CPU)
+    lay = {p: Sharding(g, x[p].shape[0]) for p in x}
+    z, _ = tck.load_sharded(tmp_path / "t", shardings=lay)
+    assert all(torch.equal(z[p], y[p]) for p in x)
 
 
 def test_checkpoint_manager_rotation_and_restore(tmp_path):
@@ -282,6 +286,10 @@ def test_checkpoint_manager_rotation_and_restore(tmp_path):
         want = states[6 if step is None else step]
         for p in want:
             assert torch.equal(got[p], torch.as_tensor(want[p]))
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tm.restore(shardings={1: None})
+    from hpdg_tpu_torch.parallel.comm import ShardGroup, Sharding
+    g = ShardGroup(1, CPU)
+    lay = {p: Sharding(g, states[6][p].shape[0]) for p in states[6]}
+    got = tm.restore(shardings=lay)
+    assert all(torch.equal(got[p], torch.as_tensor(states[6][p]))
+               for p in lay)
     tm.close()
