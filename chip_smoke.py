@@ -70,7 +70,7 @@ Phases (any failure ends the run with a nonzero exit code):
    cycle beside phase 4's;
 11. BASELINE config 5 as ``bench.py:775-817`` builds it: a membrane
    pushed into a lower obstacle on 128^2 at p=3 (262,144 dofs), f64
-   SIPG matrix assembled on the card, ``solve_obstacle_verified`` twice
+   SIPG matrix assembled on the card, ``solve_obstacle_verified`` once
    (f32 TNNMG, then the primal-dual active-set loop of f64 refinements
    around f32 parametric V-cycles); every run verified by
    host numpy f64: free-dof residual <= 1e-8, feasible, complementarity
@@ -146,7 +146,7 @@ Phases (any failure ends the run with a nonzero exit code):
    with 13c's DG solution, and the refusal of ``dg_to_cg_transfer`` on
    per-element charts (ROADMAP R9);
    (d) ``models.HeatProblem`` on 32^3 p=2 (884,736 dofs) with the
-   DG->CG coarse solve, dt 0.01, 5 implicit-Euler steps, each
+   DG->CG coarse solve, dt 0.01, 4 implicit-Euler steps, each
    host-verified <= 1e-8 and dissipating;
    ``SolverCheckpointManager(max_to_keep=3)`` saving every step and a
    bitwise restore; ``write_vtu`` of the last state into a temporary
@@ -173,7 +173,7 @@ Phases (any failure ends the run with a nonzero exit code):
    iterations leave the serial solver far off at this size), with the
    dryrun's bounds (energies 1e-6, iterates 1e-3 of max, truncated > 0);
    (c) ``sharded_adaptive_solve(solver="mg-pcg")`` from 128^2 p=2
-   (147,456 dofs), 3 cycles, partitions "planes" and "inherit"
+   (147,456 dofs), 1 cycle, partitions "planes" and "inherit"
    (identical meshes: the mg-pcg solver replans each cycle); on the
    final mesh x within 1e-3 of a serial block-Jacobi PCG on the card,
    residual <= 1e-5, eta within 1e-3;
@@ -183,6 +183,36 @@ Phases (any failure ends the run with a nonzero exit code):
    group of world size 1 (a ``FileStore`` in a temporary directory):
    its apply and 10 block-Jacobi PCG iterations equal the one-process
    group's within 1e-13.
+
+16. the sharded elasticity (``hpdg_tpu_torch.parallel.elasticity``)
+   through a one-process shard group of 8 shards on the card:
+   (a) config 4 (24^3 p=2, mu 1, lam 1, penalty 4; 1,119,744 dofs) in 8
+   slabs of 3 layers: the sharded apply against the serial
+   ``elasticity_operator`` under Dirichlet and natural boundaries
+   (1e-11 of max|y| in f64, 1e-5 in f32), its times, launches and device
+   ms beside the serial apply's and phase 8's, and
+   ``elasticity_pmg_pcg_solve`` (f64, patch smoothing, no h-level: 8
+   slabs of 24 cells cannot halve) verified <= 1e-8 by the serial f64
+   apply within 200 iterations; (b) 13b's quarter cylinder in C-lattice
+   order through ``gmesh=``: the apply against the serial curved
+   operator under both penalty scalings (1e-11), then the Chebyshev
+   pmg-PCG under "measure" verified likewise; (c) the ``--sharded``
+   branch of ``hpdg_tpu_torch.examples.elasticity`` at the reference's
+   own size; (d) (a)'s slabs through an NCCL group of world size 1: the
+   apply and 10 block-Jacobi PCG iterations within 1e-13 of one process.
+
+17. the native host kernels (``hpdg_tpu_torch.native``, ``g++`` from
+   ``cpp/meshkit.cc``) and ``assemble_laplace(geom_scale=)``: (a) the
+   library builds and loads; (b) ``from_boxes(topology="native")``
+   against ``"python"`` on the 32^3 lattice and phase 6's refined mesh,
+   canonically equal, with both times; (c) ``from_cell_vertices`` of a
+   shuffled 16^3 hex import by the native and the Python frame matcher,
+   equal frames and faces, and the native matcher's None on 13c's
+   twisted O-grid; (d) phase 4's 32^3 solution re-verified by
+   ``uniform_sipg_factorized_host`` beside the torch f64 CPU apply
+   (verified residuals within 1e-12 of each other, the applies within
+   1e-11 of max|y|); (e) ``geom_scale`` 1 and 0.5 at 16^3 p=4 on the
+   card, 0.5 against the mesh of halved extents (1e-12).
 
 The last two lines are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -542,8 +572,12 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2, smoother: str = "patch",
     # residual, so the f32 floor of the chain from zero does not enter)
     anchored = (res["history"][-1] / res["history"][0]) ** (
         1.0 / max(1, res["cycles"]))
-    return dict(ndof=basis.ndof, launches=launches, anchored=anchored,
-                first=rdiag[1], steps=res["steps"], cycles=res["cycles"])
+    out = dict(ndof=basis.ndof, launches=launches, anchored=anchored,
+               first=rdiag[1], steps=res["steps"], cycles=res["cycles"])
+    if n == 32:  # phase 17d re-verifies the solution on the host
+        out.update(basis=basis, p=p, A_host=A_host, b_host=b_host,
+                   x_host={k: v.cpu() for k, v in x64.items()})
+    return out
 
 
 def profile_cycles(step, x0, b32, cycles: int = 3):
@@ -842,7 +876,7 @@ def elasticity_solve(dev, n_el: int = 24):
           flush=True)
     if ndof != 81 * n_el ** 3:  # 1,119,744 at 24^3
         raise AssertionError(f"elasticity: {ndof} dofs")
-    mf_elasticity_apply(basis, plan, A64, A32, dev)
+    apply_ms = mf_elasticity_apply(basis, plan, A64, A32, dev)
 
     # the Galerkin hierarchy alone, then the whole solver set-up (the
     # hierarchy again, the class patch inverses and the coarse solve)
@@ -903,7 +937,7 @@ def elasticity_solve(dev, n_el: int = 24):
         raise AssertionError(f"elasticity not verified: rel "
                              f"{res['rel_residual']:.3e}")
     return dict(assembly_s=t_asm, assembly_peak_gb=asm_peak_gb,
-                peak_gb=peak / 1e9)
+                peak_gb=peak / 1e9, apply_ms=apply_ms)
 
 
 def mf_elasticity_apply(basis, plan, A64, A32, dev):
@@ -942,6 +976,7 @@ def mf_elasticity_apply(basis, plan, A64, A32, dev):
     print_profile("elasticity mf-f32 apply", profile_apply(lambda: op32(x32)))
     print_profile("elasticity spmv-f32 apply",
                   profile_apply(lambda: bm.matvec(A32, x32)))
+    return times
 
 
 def lex_parity(dev):
@@ -2399,6 +2434,490 @@ def rank_route(dev, keep: dict):
         raise AssertionError(f"15e: rank route differs, rel {max(rels):.3e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the sharded elasticity through a shard group of 8 shards
+# ---------------------------------------------------------------------------
+
+def _on_card(tag: str, dev, *tensors):
+    """Raises if a shard tensor is off the card (no silent host route)."""
+    for t in tensors:
+        if t.device != dev:
+            raise AssertionError(f"{tag}: a shard tensor lives on "
+                                 f"{t.device}, not {dev}")
+
+
+def _elasticity_force(x):
+    return torch.stack(
+        [3 * np.pi ** 2 * torch.sin(np.pi * x[..., 0])
+         * torch.sin(np.pi * x[..., 1]) * torch.sin(np.pi * x[..., 2]),
+         torch.zeros_like(x[..., 0]), torch.zeros_like(x[..., 0])], dim=-1)
+
+
+def _pmg_pcg_verified(tag, pmg, b, serial, dev, iters: int, cap: int = 200):
+    """``elasticity_pmg_pcg_solve`` from ``iters`` iterations up to
+    ``cap``, verified by the serial f64 apply (<= 1e-8, hard)."""
+    from hpdg_tpu_torch.parallel.elasticity import elasticity_pmg_pcg_solve
+    p = pmg.levels[-1].p
+    nb = float(b.norm())
+    while True:
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        x, rel = elasticity_pmg_pcg_solve(pmg, b, iters=iters)
+        rel = float(rel)
+        t_solve = time.perf_counter() - t
+        _on_card(tag, dev, x)
+        verified = float((b - serial({p: x})[p]).norm()) / nb
+        print(f"{tag} elasticity_pmg_pcg_solve: {iters} iterations (cap "
+              f"{cap}) in {t_solve:.2f} s ({1e3 * t_solve / iters:.1f} "
+              f"ms/it); recursive rel {rel:.3e}, verified by the serial "
+              f"f64 apply {verified:.3e}", flush=True)
+        if verified <= 1e-8 or iters >= cap:
+            break
+        need = iters * np.log(1e-9) / np.log(max(verified, 1e-300))
+        iters = int(min(cap, max(2 * iters, np.ceil(need))))
+    if not (verified <= 1e-8 and bool(torch.isfinite(x).all())):
+        raise AssertionError(f"{tag}: verified {verified:.3e}")
+    return x, iters
+
+
+def sharded_elasticity(dev, cells=(24, 24, 24), p: int = 2,
+                       box: dict | None = None, iters: int = 26,
+                       pmg_shards: int = 4):
+    """Phase 16a: config 4 (24^3 p=2, mu 1, lam 1, penalty 4, Dirichlet)
+    through ``parallel.elasticity`` on 8 slabs: the sharded apply against
+    the serial ``elasticity_operator`` under both boundary kinds, its
+    times and launches beside phase 8's serial apply and SpMV (``box``),
+    and the pmg-PCG with patch smoothing and one h-level verified by the
+    serial f64 apply.  The pmg runs on ``pmg_shards`` slabs: an h-level
+    halves every slab, which 8 slabs of 3 layers cannot do, 4 of 6 can.
+    Its coarse PCG takes 20 iterations, not the reference's 60: with
+    patch smoothing the coarse solve's accuracy barely moves the
+    contraction, and its launches are most of a V-cycle's.  Returns
+    what 16d needs."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.assemble import l2_functional_vec
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.matrixfree.elasticity import elasticity_operator
+    from hpdg_tpu_torch.parallel.comm import ShardGroup
+    from hpdg_tpu_torch.parallel.elasticity import (
+        build_sharded_elasticity, build_sharded_elasticity_pmg)
+    f64, f32 = torch.float64, torch.float32
+    kw = dict(mu=1.0, lam=1.0, penalty=4.0)
+    group = ShardGroup(8, dev)
+    n = int(np.prod(cells))
+    basis = DGBasis(hm.structured(cells), np.full(n, p))
+    bs = 3 * (p + 1) ** 3
+    gen = torch.Generator(device=dev).manual_seed(1887)
+    x64 = torch.randn((n, bs), generator=gen, dtype=f64, device=dev)
+    x32 = x64.float()
+    print(f"16a problem: cells {cells} p={p}, {n * bs} dofs in "
+          f"{group.ndev} slabs of {cells[0] // group.ndev} layers", flush=True)
+    keep = None
+    for diri in (True, False):
+        serial = elasticity_operator(basis, dirichlet=diri, dtype=f64,
+                                     device=dev, **kw)
+        y64 = serial({p: x64})[p]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        prob = build_sharded_elasticity(cells, p, group=group,
+                                        dirichlet=diri, dtype=f64, **kw)
+        prob32 = build_sharded_elasticity(cells, p, group=group,
+                                          dirichlet=diri, dtype=f32, **kw)
+        torch.cuda.synchronize(dev)
+        t_build = time.perf_counter() - t
+        ys = prob.apply(x64)
+        _on_card("16a", dev, ys)
+        tag = f"16a dirichlet={diri}"
+        check_rel(f"{tag} sharded apply f64 vs serial elasticity_operator",
+                  {p: y64}, {p: ys}, 1e-11)
+        check_rel(f"{tag} sharded apply f32 vs f64", {p: y64},
+                  {p: prob32.apply(x32)}, 1e-5)
+        ms = {k: _median(event_times(fn, 10)) for k, fn in (
+            ("sharded f64", lambda: prob.apply(x64)),
+            ("sharded f32", lambda: prob32.apply(x32)),
+            ("serial f64", lambda: serial({p: x64})))}
+        ph8 = ", ".join(f"{k} {v:.3f}" for k, v in (box or {}).get(
+            "apply_ms", {}).items())
+        print(f"{tag} build {t_build:.2f} s (f64 and f32); apply ms (CUDA "
+              f"events, median of 10): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + (f" | phase 8 (refined-order mesh): {ph8}" if ph8 else "")
+              + f"; peak_mem_GB={_peak_gb(dev):.2f}", flush=True)
+        print_profile(f"{tag} sharded f64",
+                      profile_apply(lambda: prob.apply(x64)))
+        if diri:
+            keep = dict(prob=prob, x=x64, serial=serial, cells=cells, p=p)
+        del prob32
+    # the pmg-PCG of config 4 (f64, vertex-patch smoothing, one h-level)
+    if cells[0] % (2 * pmg_shards):
+        raise ValueError(f"16a: {pmg_shards} slabs of {cells} cannot halve")
+    b = l2_functional_vec(basis, _elasticity_force, device=dev)[p]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    pmg = build_sharded_elasticity_pmg(cells, p,
+                                       group=ShardGroup(pmg_shards, dev),
+                                       dirichlet=True, dtype=f64,
+                                       smoother="patch", h_levels=1,
+                                       coarse_cg_iters=20, **kw)
+    torch.cuda.synchronize(dev)
+    t_build = time.perf_counter() - t
+    if len(pmg.levels) != 3 or pmg.levels[0].cells[0] * 2 != cells[0]:
+        raise AssertionError("16a: the pmg has no h-level")
+    levels = ", ".join(f"{lv.cells}/p{lv.p}" for lv in pmg.levels)
+    print(f"16a pmg on {pmg_shards} slabs: levels [{levels}] (coarsest "
+          f"first), patch smoothing on every level, rho estimates "
+          f"{[round(v, 6) for v in pmg.lmaxs]}, built in {t_build:.2f} s, "
+          f"peak_mem_GB={_peak_gb(dev):.2f}", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _pmg_pcg_verified("16a", pmg, b, keep["serial"], dev, iters)
+    print(f"16a solve peak_mem_GB={_peak_gb(dev):.2f}", flush=True)
+    keep["b"] = b
+    return keep
+
+
+def _lattice_order(mesh, cells) -> np.ndarray:
+    """Element ids of ``mesh`` (parametric boxes tiling the unit cube on
+    the ``cells`` lattice) in C-lattice order."""
+    h = 1.0 / np.asarray(cells, np.float64)
+    ic = np.rint(mesh.lower / h).astype(np.int64)
+    return np.argsort(np.ravel_multi_index(ic.T, cells), kind="stable")
+
+
+def sharded_elasticity_curved(dev, n_el: int = 24, p: int = 2,
+                              iters: int = 70, pmg_kw: dict | None = None):
+    """Phase 16b: 13b's quarter hollow cylinder (``isoparametric`` on
+    (n_el/4)^3, refined twice; its corners put in C-lattice order)
+    through ``gmesh=``: the apply against the serial curved operator
+    under both penalty scalings, then the pmg-PCG with Chebyshev
+    smoothing ("measure") verified by the serial f64 apply.  ``pmg_kw``:
+    the coarse PCG's iterations and the Chebyshev degree (default 20
+    and 6, not the reference's 60 and 3: Chebyshev smoothing limits the
+    contraction here, so stronger smoothing and a cheaper coarse solve
+    reach 1e-8 sooner; PERF.md has both on the card)."""
+    pmg_kw = pmg_kw or dict(coarse_cg_iters=20, pre_steps=6, post_steps=6)
+    from dataclasses import replace
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.assemble import l2_functional_vec
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    from hpdg_tpu_torch.examples.meshes import cylinder_quarter
+    from hpdg_tpu_torch.matrixfree.elasticity import elasticity_operator
+    from hpdg_tpu_torch.mesh import geometry as geo
+    from hpdg_tpu_torch.parallel.comm import ShardGroup
+    from hpdg_tpu_torch.parallel.elasticity import (
+        build_sharded_elasticity, build_sharded_elasticity_pmg)
+    f64 = torch.float64
+    kw = dict(mu=1.0, lam=1.0, penalty=4.0, dirichlet=True)
+    cells = (n_el,) * 3
+    t = time.perf_counter()
+    mf = geo.isoparametric(hm.structured((n_el // 4,) * 3), cylinder_quarter)
+    for _ in range(2):
+        mf = hm.refine(mf)
+    gm = replace(hm.structured(cells),
+                 corners=mf.corners[_lattice_order(mf, cells)])
+    basis = DGBasis(gm, np.full(gm.n_elements, p))
+    t_mesh = time.perf_counter() - t
+    group = ShardGroup(8, dev)
+    n, bs = gm.n_elements, 3 * (p + 1) ** 3
+    gen = torch.Generator(device=dev).manual_seed(1887)
+    x64 = torch.randn((n, bs), generator=gen, dtype=f64, device=dev)
+    print(f"16b problem: 13b's quarter cylinder in C-lattice order, cells "
+          f"{cells} p={p}, {n * bs} dofs, volume "
+          f"{gm.volumes.sum():.6f} (3 pi/4 = {3 * np.pi / 4:.6f}); host "
+          f"mesh {t_mesh:.2f} s", flush=True)
+    # the pmg under "measure": its block-Jacobi blocks take that scaling
+    # whatever the operator's, as the reference's do, and under "normal"
+    # in 3D the Chebyshev window then misses the spectrum (ROADMAP R11).
+    # Its fine level is the sharded operator checked below.
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    pmg = build_sharded_elasticity_pmg(cells, p, group=group, gmesh=gm,
+                                       dtype=f64, smoother="cheb",
+                                       h_levels=0, **pmg_kw, **kw)
+    torch.cuda.synchronize(dev)
+    print(f"16b pmg: levels "
+          f"[{', '.join(f'{lv.cells}/p{lv.p}' for lv in pmg.levels)}], "
+          f"{pmg_kw}, rho estimates {[round(v, 6) for v in pmg.lmaxs]}, "
+          f"built in {time.perf_counter() - t:.2f} s, "
+          f"peak_mem_GB={_peak_gb(dev):.2f}", flush=True)
+    serial = None
+    for scaling in ("normal", "measure"):
+        serial = elasticity_operator(basis, dtype=f64, device=dev,
+                                     penalty_scaling=scaling, **kw)
+        t = time.perf_counter()
+        prob = pmg.levels[-1] if scaling == "measure" else \
+            build_sharded_elasticity(cells, p, group=group, gmesh=gm,
+                                     dtype=f64, penalty_scaling=scaling,
+                                     **kw)
+        torch.cuda.synchronize(dev)
+        t_build = time.perf_counter() - t
+        ys = prob.apply(x64)
+        _on_card("16b", dev, ys)
+        tag = f"16b {scaling}"
+        check_rel(f"{tag} sharded curved apply f64 vs serial curved "
+                  "operator", serial({p: x64}), {p: ys}, 1e-11)
+        ms = {k: _median(event_times(fn, 10)) for k, fn in (
+            ("sharded f64", lambda: prob.apply(x64)),
+            ("serial f64", lambda: serial({p: x64})))}
+        print(f"{tag} build {t_build:.2f} s (host geometry tables of 8 "
+              f"shards; the pmg's fine level under measure); apply ms "
+              f"(CUDA events, median of 10): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()), flush=True)
+        if scaling == "measure":
+            print_profile(f"{tag} sharded f64",
+                          profile_apply(lambda: prob.apply(x64)))
+        del prob
+    b = l2_functional_vec(basis, _elasticity_force, device=dev)[p]
+    _pmg_pcg_verified("16b", pmg, b, serial, dev, iters)
+
+
+def sharded_elasticity_example(dev):
+    """Phase 16c: the ``--sharded`` branch of the elasticity example at
+    the reference's own size, on the card."""
+    from hpdg_tpu_torch.examples import elasticity as example
+    t = time.perf_counter()
+    out = example.main(["--sharded", "1", "--device", dev.type])
+    sh = out["sharded"]
+    print(f"16c examples.elasticity --sharded 1: {time.perf_counter() - t:.2f}"
+          f" s; {sh['ndev']} shards, {sh['ndof']} dofs, rel residual "
+          f"{sh['rel']:.3e}", flush=True)
+    if not (sh["ndev"] == 8 and np.isfinite(sh["rel"]) and sh["rel"] < 1e-3):
+        raise AssertionError(f"16c: {sh}")
+
+
+def elasticity_rank_route(dev, keep: dict):
+    """Phase 16d: 16a's slabs through a ``torch.distributed`` group of
+    world size 1 (NCCL on the card) against the one-process group: the
+    apply and 10 block-Jacobi PCG iterations."""
+    import tempfile
+    import torch.distributed as dist
+    from hpdg_tpu_torch.parallel.comm import ShardGroup
+    from hpdg_tpu_torch.parallel.elasticity import (build_sharded_elasticity,
+                                                    elasticity_pcg_solve)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    kw = dict(mu=1.0, lam=1.0, penalty=4.0, dirichlet=True)
+    one, x, b = keep["prob"], keep["x"], keep["b"]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            g = ShardGroup.from_process_group(8, device=dev)
+            prob = build_sharded_elasticity(keep["cells"], keep["p"],
+                                            group=g, dtype=torch.float64,
+                                            **kw)
+            rels = []
+            for what, a, c in (
+                    ("apply", one.apply(x), prob.apply(x)),
+                    ("10 PCG iterations",
+                     elasticity_pcg_solve(one, b, iters=10, **kw)[0],
+                     elasticity_pcg_solve(prob, b, iters=10, **kw)[0])):
+                rel = float((a - c).abs().max()) / float(a.abs().max())
+                rels.append(rel)
+                print(f"16d {backend} world 1 vs one process, {what}: rel "
+                      f"{rel:.3e} (bound 1e-13)", flush=True)
+            ms = _median(event_times(lambda: prob.apply(x), 10))
+            print(f"16d {backend} sharded elasticity apply ms (CUDA "
+                  f"events, median of 10): {ms:.3f}", flush=True)
+        finally:
+            dist.destroy_process_group()
+    if not max(rels) <= 1e-13:
+        raise AssertionError(f"16d: rank route differs, rel {max(rels):.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the native host kernels and assemble_laplace(geom_scale=)
+# ---------------------------------------------------------------------------
+
+def _canon_faces(m) -> tuple:
+    f, b = m.faces, m.bfaces
+    return (sorted(zip(f.inside.tolist(), f.outside.tolist(),
+                       f.axis.tolist(), f.nc_code.tolist())),
+            sorted(zip(b.elem.tolist(), b.axis.tolist(), b.side.tolist())))
+
+
+def _cells_bit(cells):
+    """VTK-ordered hexes -> corner ids in the bit convention (the default
+    frame ``from_cell_vertices`` starts from)."""
+    from hpdg_tpu_torch.mesh import geometry as geo
+    B = geo._bits(3).astype(np.int64)
+    vtk_of_bit = [int(np.where((geo._VTK_CORNER_REF == B[c]).all(1))[0][0])
+                  for c in range(8)]
+    return np.asarray(cells, np.int64)[:, vtk_of_bit]
+
+
+def native_kernels(dev, n: int = 32, n_adapt: int = 14, n_import: int = 16,
+                   nb: int = 16, layers: int = 16, solved: dict | None = None):
+    """Phase 17a-d: the native library builds and loads; the native face
+    matcher equals the numpy one on the ``n``^3 lattice and phase 6's
+    refined mesh; the native frame matcher equals the Python BFS on a
+    non-twisted import and returns None on 13c's twisted O-grid;
+    ``solved`` (phase 4's 32^3 solution) re-verified by the native host
+    apply beside the torch f64 CPU apply."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch import native
+    from hpdg_tpu_torch.examples import meshes as gen
+    from hpdg_tpu_torch.matrixfree.uniform import uniform_sipg_factorized_host
+    from hpdg_tpu_torch.mesh import geometry as geo
+    from hpdg_tpu_torch.mesh.adaptive import close_marks, refine_local
+    # 17a
+    if not native.available():
+        raise AssertionError("17a: g++ is not on the PATH: no native "
+                             "host kernels")
+    t = time.perf_counter()
+    native.build()
+    print(f"17a native library {native.library_path().name}: built and "
+          f"loaded in {time.perf_counter() - t:.2f} s", flush=True)
+    # 17b
+    m0 = hm.structured((n_adapt,) * 3)
+    rng = np.random.default_rng(3)
+    adapt = refine_local(m0, close_marks(m0, rng.random(m0.n_elements) < 0.3))
+    for label, m in ((f"{n}^3 lattice", hm.structured((n,) * 3)),
+                     (f"phase 6's {n_adapt}^3 30% refined", adapt)):
+        secs, found = {}, {}
+        for route in ("native", "python"):
+            t = time.perf_counter()
+            mm = hm.from_boxes(m.lower, m.extent, topology=route)
+            secs[route] = time.perf_counter() - t
+            found[route] = _canon_faces(mm)
+        same = found["native"] == found["python"]
+        print(f"17b from_boxes on the {label} ({m.n_elements} elements, "
+              f"{len(found['python'][0])} faces): native "
+              f"{secs['native']:.4f} s, python {secs['python']:.4f} s; "
+              f"canonically equal {same}", flush=True)
+        if not same:
+            raise AssertionError(f"17b: native faces differ on the {label}")
+    # 17c
+    pts, cells = gen.lattice((n_import,) * 3)
+    cells = gen.shuffle_and_rotate(cells, np.random.default_rng(5))
+    if native.frame_cells(_cells_bit(cells), 3) is None:
+        raise AssertionError("17c: the native frame matcher refused a "
+                             "lattice import")
+    meshes, secs = {}, {}
+    for route, env in (("native", "1"), ("python", "0")):
+        old = os.environ.get("HPDG_NATIVE_TOPOLOGY")
+        os.environ["HPDG_NATIVE_TOPOLOGY"] = env
+        try:
+            t = time.perf_counter()
+            meshes[route] = geo.from_cell_vertices(pts, cells)
+            secs[route] = time.perf_counter() - t
+        finally:
+            if old is None:
+                os.environ.pop("HPDG_NATIVE_TOPOLOGY")
+            else:
+                os.environ["HPDG_NATIVE_TOPOLOGY"] = old
+    a, c = meshes["native"], meshes["python"]
+    fs = lambda m: set(zip(m.faces.inside.tolist(),  # noqa: E731
+                           m.faces.outside.tolist(), m.faces.axis.tolist()))
+    frames = all(
+        (getattr(a, k) is None and getattr(c, k) is None)
+        or np.array_equal(getattr(a, k), getattr(c, k))
+        for k in ("corners", "jac", "shift"))
+    same = (fs(a) == fs(c) and frames
+            and _canon_faces(a)[1] == _canon_faces(c)[1])
+    opts, ocells, _ = gen.ogrid_cylinder(nb, layers)
+    scrambled = gen.shuffle_and_rotate(ocells, np.random.default_rng(0))
+    t = time.perf_counter()
+    twisted = native.frame_cells(_cells_bit(scrambled), 3)
+    t_tw = time.perf_counter() - t
+    print(f"17c from_cell_vertices of {n_import}^3 shuffled hexes: native "
+          f"{secs['native']:.3f} s, python {secs['python']:.3f} s; equal "
+          f"frames and faces {same}; 13c's O-grid ({len(scrambled)} hexes): "
+          f"native frame matcher returns "
+          f"{'None' if twisted is None else 'frames'} in {t_tw:.3f} s",
+          flush=True)
+    if not same:
+        raise AssertionError("17c: native and Python imports differ")
+    if twisted is not None:
+        raise AssertionError("17c: the twisted O-grid did not defer to "
+                             "the Python route")
+    # 17d
+    if solved is not None:
+        basis, p = solved["basis"], solved["p"]
+        x, b, A_host = solved["x_host"], solved["b_host"], solved["A_host"]
+        t = time.perf_counter()
+        nat = uniform_sipg_factorized_host(basis, penalty=PENALTY,
+                                           dirichlet=True,
+                                           penalty_scaling=SCALING)
+        t_setup = time.perf_counter() - t
+        xn = x[p].numpy()
+        t = time.perf_counter()
+        y_nat = nat(xn)
+        t_nat = time.perf_counter() - t
+        t = time.perf_counter()
+        y_t = A_host(x)[p].numpy()
+        t_torch = time.perf_counter() - t
+        bn = b[p].numpy()
+        # the two applies sum in other orders: their difference is f64
+        # roundoff of the summands, sum_t |A_t| |x|, which is far above
+        # |A x| = |b| here; the bound is relative to that scale
+        s_abs = _abs_factorized(basis)({p: x[p].abs()})[p].numpy()
+        diff = float(np.abs(y_nat - y_t).max())
+        apply_rel = diff / float(s_abs.max())
+        of_y = diff / float(np.abs(y_t).max())
+        r_nat = float(np.linalg.norm(bn - y_nat) / np.linalg.norm(bn))
+        r_t = float(np.linalg.norm(bn - y_t) / np.linalg.norm(bn))
+        print(f"17d phase 4's 32^3 p=4 solution ({xn.size} dofs) on the "
+              f"host: native apply {t_nat:.3f} s (set-up {t_setup:.3f} s, "
+              f"{os.cpu_count()} host cores), torch f64 CPU apply "
+              f"{t_torch:.3f} s; verified rel residual native {r_nat:.6e}, "
+              f"torch {r_t:.6e}, difference {abs(r_nat - r_t):.3e} (bound "
+              f"1e-12); applies differ by {apply_rel:.3e} of "
+              f"max(sum_t |A_t| |x|) = {float(s_abs.max()):.3e} (bound "
+              f"1e-12), {of_y:.3e} of max|y| = {float(np.abs(y_t).max()):.3e}",
+              flush=True)
+        if not (abs(r_nat - r_t) <= 1e-12 and r_nat <= 1e-8
+                and apply_rel <= 1e-12):
+            raise AssertionError(f"17d: native host residual {r_nat:.3e} "
+                                 f"against {r_t:.3e}, applies {apply_rel:.3e}")
+
+
+def _abs_factorized(basis):
+    """Phase 4's factorized f64 host apply with every 1D factor replaced
+    by its absolute value: on |x| it gives sum_t |A_t| |x| >= |A| |x|,
+    the scale of the f64 roundoff of the factorized sums in any order."""
+    from unittest import mock
+    from hpdg_tpu_torch.matrixfree import uniform
+    blocks = uniform.sipg_factor_blocks
+
+    def abs_blocks(*args, **kw):
+        cells, nb, Mm, *lines = blocks(*args, **kw)
+        return (cells, nb, np.abs(Mm),
+                *({ax: np.abs(M) for ax, M in D.items()} for D in lines))
+
+    with mock.patch.object(uniform, "sipg_factor_blocks", abs_blocks):
+        return uniform.uniform_sipg_factorized(
+            basis, penalty=PENALTY, dirichlet=True, penalty_scaling=SCALING,
+            dtype=torch.float64, device="cpu")
+
+
+def geom_scale_assembly(dev, n: int = 16, p: int = 4):
+    """Phase 17e: ``assemble_laplace(geom_scale=s)`` at n^3 p on the card
+    for s = 1 and s = 0.5 (a 0-dim tensor on the card), the latter
+    against the assembly of the mesh with halved extents."""
+    from hpdg_tpu_torch import mesh as hm
+    from hpdg_tpu_torch.assemble import assemble_laplace
+    from hpdg_tpu_torch.basis.dgbasis import DGBasis
+    kw = dict(penalty=PENALTY, dirichlet=True, penalty_scaling=SCALING,
+              device=dev)
+    cells = (n,) * 3
+    basis = DGBasis(hm.structured(cells), np.full(n ** 3, p))
+    half = DGBasis(hm.structured(cells, upper=(0.5,) * 3), np.full(n ** 3, p))
+    out = {}
+    for s in (1.0, torch.tensor(0.5, dtype=torch.float64, device=dev)):
+        assemble_laplace(basis, geom_scale=s, **kw)  # warm
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        A = assemble_laplace(basis, geom_scale=s, **kw)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t
+        out[float(s)] = A
+        print(f"17e assemble_laplace(geom_scale={float(s)}) {n}^3 p={p} "
+              f"({basis.ndof} dofs): {secs:.3f} s, "
+              f"{basis.ndof / secs:.4e} DOF/s", flush=True)
+    Ah = assemble_laplace(half, **kw)
+    check_rel("17e geom_scale=0.5 vs the mesh of halved extents",
+              Ah.values, out[0.5].values, 1e-12)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2461,7 +2980,7 @@ def main() -> int:
           f"{cheb['first']:.3e}", flush=True)
 
     # ---- phase 11: the obstacle problem (config 5) ----
-    obstacle_solve(dev, n_runs=2)  # two runs, not the bench's three: time
+    obstacle_solve(dev, n_runs=1)  # one run, not the bench's three: time
 
     # ---- phase 12: the hp-adaptive L-shape (config 3) ----
     adaptive_lshape_loop(dev)
@@ -2477,17 +2996,33 @@ def main() -> int:
     dgcg_path(dev)
     cg_space(dev, imported)
     del imported
-    presets_and_tools(dev)
+    presets_and_tools(dev, steps=4)  # 4 steps, not 5: the run's time
     print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
 
     # ---- phase 15: the sharded hp layer (8 shards, one process) ----
     t15 = time.perf_counter()
     keep = sharded_poisson(dev)
     sharded_tnnmg(dev)
-    sharded_adaptive(dev)
+    sharded_adaptive(dev, cycles=2)  # two cycles, not three: run time
     rank_route(dev, keep)
     del keep
     print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+
+    # ---- phase 16: the sharded elasticity (8 shards, one process) ----
+    t16 = time.perf_counter()
+    keep = sharded_elasticity(dev, box=box)
+    elasticity_rank_route(dev, keep)
+    del keep
+    torch.cuda.empty_cache()
+    sharded_elasticity_curved(dev)
+    sharded_elasticity_example(dev)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+
+    # ---- phase 17: the native host kernels, geom_scale ----
+    t17 = time.perf_counter()
+    native_kernels(dev, solved=main_run)
+    geom_scale_assembly(dev)
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
 
     if "jax" in sys.modules or "hpdg_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hpdg_tpu")

@@ -17,7 +17,6 @@ Port of ``hpdg_tpu.assemble.sipg``:
 Conventions match the reference exactly: Gauss-Lobatto quadrature of
 DUNE order 2*max(p), [u] = u_in - u_out, normal inside -> outside,
 Dirichlet boundary terms with full (not halved) consistency weights.
-``geom_scale`` waits for ROADMAP queue 1, item 13.
 """
 
 from __future__ import annotations
@@ -98,13 +97,16 @@ class _DictBuilder:
         self.dtype = dtype
         self.device = device
         self.mats = {}     # key -> list of np [br*bc] dictionary rows
+        self.scales = {}   # key -> per column a float or 0-dim tensor
         self.entries = {}  # key -> list of (slots np, col, coefs np)
 
-    def add(self, key, slots, mat_np, coefs):
-        """blocks[slots] += coefs[:, None, None] * mat_np."""
+    def add(self, key, slots, mat_np, coefs, scale=1.0):
+        """blocks[slots] += scale * coefs[:, None, None] * mat_np
+        (``scale``: a float or a 0-dim tensor, applied in ``finish``)."""
         cols = self.mats.setdefault(key, [])
         col = len(cols)
         cols.append(np.asarray(mat_np, np.float64).reshape(-1))
+        self.scales.setdefault(key, []).append(scale)
         self.entries.setdefault(key, []).append(
             (np.asarray(slots, np.int64), col,
              np.broadcast_to(np.asarray(coefs, np.float64), (len(slots),))))
@@ -132,6 +134,9 @@ class _DictBuilder:
         as_t = lambda a: torch.as_tensor(  # noqa: E731
             a, dtype=self.dtype, device=self.device)
         for (pr, pc), (coef, D) in self.factors().items():
+            sc = self.scales.get((pr, pc), [])
+            if any(isinstance(v, torch.Tensor) or v != 1.0 for v in sc):
+                coef = as_t(coef) * torch.stack([as_t(v) for v in sc])
             vals[(pr, pc)] = (as_t(coef) @ as_t(D)).reshape(
                 coef.shape[0], (pr + 1) ** self.dim, (pc + 1) ** self.dim)
         return vals
@@ -146,7 +151,11 @@ class _CoefBuilder(_DictBuilder):
     small ``[nblocks, K]`` table."""
 
     def finish(self) -> dict:
-        return self.factors()
+        parts = self.factors()
+        for key, sc in self.scales.items():
+            coef, D = parts[key]
+            parts[key] = (coef * np.asarray([float(v) for v in sc]), D)
+        return parts
 
 
 class _ValueBuilder:
@@ -223,6 +232,7 @@ def pullback_diffusion(F):
 def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
                      dirichlet: bool = False, diffusion=None,
                      dtype=torch.float64, plan: AssemblyPlan | None = None,
+                     geom_scale=None,
                      penalty_scaling: str = "measure",
                      dg_form="sipg",
                      sigma1: float = 0.0,
@@ -242,12 +252,24 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
     ``{(pr, pc): (coef [nblocks, K], D [K, br*bc])}`` (host numpy f64)
     instead of a BlockSparseMatrix; constant coefficients on box meshes
     only.
+
+    ``geom_scale``: optional scalar s (a float, or a 0-dim tensor on
+    ``device``); assembles the operator of the mesh with all extents
+    multiplied by s.  Every consistency coefficient scales by s^(dim-2);
+    the penalty part is scale-free under "measure" scaling and picks up
+    the same s^(dim-2) under "normal"; the ``sigma1`` term scales by
+    s^-2.
     """
     device = dev.resolve(device)
     plan = plan or build_plan(basis)
     mesh = basis.mesh
     dim = mesh.dim
     affine = geo.has_affine(mesh)
+    gs = 1.0 if geom_scale is None else geom_scale
+    gpow = gs ** (dim - 2)
+    pen_gpow = gpow if penalty_scaling == "normal" else 1.0
+    # |f| ~ s^(d-1) cancels 1/|f|, each (grad . n) contributes 1/s
+    s1pow = gs ** (-2)
     # constant coefficients on boxes take the dictionary-GEMM fast path;
     # variable diffusion, or first-class geometry (which folds into an
     # effective per-point tensor), needs the per-quad-point einsums
@@ -282,7 +304,7 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
             S = np.einsum("q,aiq,ajq->aij", w, G, G)
             slots = np.arange(basis.bucket_size(p), dtype=np.int32)
             for a in range(dim):
-                vb.add((p, p), slots, S[a], invh2[:, a])
+                vb.add((p, p), slots, S[a], invh2[:, a], gpow)
             continue
         xp = (mesh.lower[elems][:, None, :]
               + vt["points"][None, :, :] * ext[:, None, :])
@@ -295,7 +317,7 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
         else:
             bulk = torch.einsum("eq,ea,aiq,ajq->eij", k * J(w)[None, :],
                                 J(invh2), J(G), J(G))
-        vb.set_bulk(p, bulk)
+        vb.set_bulk(p, gpow * bulk)
 
     # ---------------- interior faces ----------------
     for fg in plan.face_groups:
@@ -321,25 +343,27 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
             # M11 = c_in (AVDi - theta AVDi^T) + pen BVVi (etc.); theta
             # folds into the dictionary matrices (SIPG theta=-1 gives
             # sym() entries)
-            vb.add((pi, pi), fg.in_pos, AVDi - theta * AVDi.T, c_in)
-            vb.add((pi, pi), fg.in_pos, BVVi, pen1)
-            vb.add((po, po), fg.out_pos, AVDo - theta * AVDo.T, -1.0 * c_out)
-            vb.add((po, po), fg.out_pos, BVVo, pen1)
-            vb.add((pi, po), fg.slot12, X1, c_out)
-            vb.add((pi, po), fg.slot12, X2, theta * c_in)
-            vb.add((pi, po), fg.slot12, X3, -pen1)
-            vb.add((po, pi), fg.slot21, X1.T, -theta * c_out)
-            vb.add((po, pi), fg.slot21, X2.T, -1.0 * c_in)
-            vb.add((po, pi), fg.slot21, X3.T, -pen1)
+            vb.add((pi, pi), fg.in_pos, AVDi - theta * AVDi.T, c_in, gpow)
+            vb.add((pi, pi), fg.in_pos, BVVi, pen1, pen_gpow)
+            vb.add((po, po), fg.out_pos, AVDo - theta * AVDo.T, -1.0 * c_out,
+                   gpow)
+            vb.add((po, po), fg.out_pos, BVVo, pen1, pen_gpow)
+            vb.add((pi, po), fg.slot12, X1, c_out, gpow)
+            vb.add((pi, po), fg.slot12, X2, theta * c_in, gpow)
+            vb.add((pi, po), fg.slot12, X3, -pen1, pen_gpow)
+            vb.add((po, pi), fg.slot21, X1.T, -theta * c_out, gpow)
+            vb.add((po, pi), fg.slot21, X2.T, -1.0 * c_in, gpow)
+            vb.add((po, pi), fg.slot21, X3.T, -pen1, pen_gpow)
             if sigma1 != 0.0:
                 GDDi = np.einsum("iq,q,jq->ij", Di, w, Di)
                 GDDo = np.einsum("iq,q,jq->ij", Do, w, Do)
                 GDio = np.einsum("iq,q,jq->ij", Di, w, Do)
                 ihi, iho = fg.inv_h_in, fg.inv_h_out
-                vb.add((pi, pi), fg.in_pos, GDDi, sigma1 * ihi * ihi)
-                vb.add((po, po), fg.out_pos, GDDo, sigma1 * iho * iho)
-                vb.add((pi, po), fg.slot12, GDio, -sigma1 * ihi * iho)
-                vb.add((po, pi), fg.slot21, GDio.T, -sigma1 * ihi * iho)
+                vb.add((pi, pi), fg.in_pos, GDDi, sigma1 * ihi * ihi, s1pow)
+                vb.add((po, po), fg.out_pos, GDDo, sigma1 * iho * iho, s1pow)
+                vb.add((pi, po), fg.slot12, GDio, -sigma1 * ihi * iho, s1pow)
+                vb.add((po, pi), fg.slot21, GDio.T, -sigma1 * ihi * iho,
+                       s1pow)
             continue
 
         # face quad points on the intersection: xp parametric (inside
@@ -348,7 +372,7 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
         ein = mesh.faces.inside[fg.face_ids]
         eout = mesh.faces.outside[fg.face_ids]
         k = K(geo.apply_map(mesh, ein, xp))
-        pen = J(pen1)[:, None, None]
+        pen = pen_gpow * J(pen1)[:, None, None]
         BVVi = J(np.einsum("iq,q,jq->ij", Vi, w, Vi))
         BVVo = J(np.einsum("iq,q,jq->ij", Vo, w, Vo))
         BVio = J(np.einsum("iq,q,jq->ij", Vi, w, Vo))
@@ -370,7 +394,7 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
             KDo = torch.einsum("fqb,biq,fb->fiq",
                                sgn_o * k_out[..., fg.out_axis, :],
                                J(fout["Dall"]), J(1.0 / mesh.extent[eout]))
-            half = -0.5 * J(fg.fmeas)[:, None] * J(w)[None, :]
+            half = gpow * -0.5 * J(fg.fmeas)[:, None] * J(w)[None, :]
             # symmetry terms carry theta: coefficient 0.5 theta z =
             # (-theta) * half
             M11 = (torch.einsum("fq,iq,fjq->fij", half, J(Vi), KDi)
@@ -395,7 +419,7 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
                 s_in = J(np.einsum("biq,fqb->fiq", fin["Dall"], sn_i))
                 s_out = J(np.einsum("biq,fqb->fiq", fout["Dall"], sn_o))
                 zsw = zs * w[None, :]
-                cfq = J((sigma1 / zsw.sum(axis=1))[:, None] * zsw)
+                cfq = s1pow * J((sigma1 / zsw.sum(axis=1))[:, None] * zsw)
                 M11 = M11 + torch.einsum("fq,fiq,fjq->fij", cfq, s_in, s_in)
                 M22 = M22 + torch.einsum("fq,fiq,fjq->fij", cfq, s_out,
                                          s_out)
@@ -404,8 +428,9 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
                 M21 = M21 - torch.einsum("fq,fiq,fjq->fij", cfq, s_out,
                                          s_in)
         else:
-            kzi = k * J(w)[None, :] * J(c_in)[:, None]  # -0.5 |f|/h_in K w
-            kzo = k * J(w)[None, :] * J(c_out)[:, None]
+            # -0.5 |f|/h_in K w
+            kzi = gpow * k * J(w)[None, :] * J(c_in)[:, None]
+            kzo = gpow * k * J(w)[None, :] * J(c_out)[:, None]
             M11 = (torch.einsum("fq,iq,jq->fij", kzi, J(Vi), J(Di))
                    - theta * torch.einsum("fq,iq,jq->fij", kzi, J(Di), J(Vi))
                    + pen * BVVi[None])
@@ -424,10 +449,11 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
                 GDio = J(np.einsum("iq,q,jq->ij", Di, w, Do))
                 ihi = J(fg.inv_h_in)[:, None, None]
                 iho = J(fg.inv_h_out)[:, None, None]
-                M11 = M11 + sigma1 * ihi * ihi * GDDi[None]
-                M22 = M22 + sigma1 * iho * iho * GDDo[None]
-                M12 = M12 - sigma1 * ihi * iho * GDio[None]
-                M21 = M21 - sigma1 * ihi * iho * GDio.T[None]
+                s1 = s1pow * sigma1
+                M11 = M11 + s1 * ihi * ihi * GDDi[None]
+                M22 = M22 + s1 * iho * iho * GDDo[None]
+                M12 = M12 - s1 * ihi * iho * GDio[None]
+                M21 = M21 - s1 * ihi * iho * GDio.T[None]
         nf = len(fg.face_ids)
         vb.add_diag(pi, fg.in_pos, M11)
         vb.add_diag(po, fg.out_pos, M22)
@@ -450,25 +476,25 @@ def assemble_laplace(basis: DGBasis, penalty: float = 2.0,
             if fast:
                 AVD = np.einsum("iq,q,jq->ij", V, w, D)
                 BVV = np.einsum("iq,q,jq->ij", V, w, V)
-                vb.add((p, p), bg.pos, AVD - theta * AVD.T, c)
-                vb.add((p, p), bg.pos, BVV, pen1)
+                vb.add((p, p), bg.pos, AVD - theta * AVD.T, c, gpow)
+                vb.add((p, p), bg.pos, BVV, pen1, pen_gpow)
                 continue
             elems = mesh.bfaces.elem[bg.face_ids]
             xp = boundary_phys_points(basis, bg, ft["points"])
             k = Keff(elems, K(geo.apply_map(mesh, elems, xp)), xp)
-            pen = J(pen1)[:, None, None]
+            pen = pen_gpow * J(pen1)[:, None, None]
             BVV = J(np.einsum("iq,q,jq->ij", V, w, V))
             if kmat:
                 # co-normal trace with outward normal sign * e_ax
                 KD = sign * torch.einsum(
                     "fqb,biq,fb->fiq", k[..., ax, :], J(ft["Dall"]),
                     J(1.0 / mesh.extent[elems]))
-                cf = -1.0 * J(bg.fmeas)[:, None] * J(w)[None, :]
+                cf = gpow * -1.0 * J(bg.fmeas)[:, None] * J(w)[None, :]
                 M = (torch.einsum("fq,iq,fjq->fij", cf, J(V), KD)
                      - theta * torch.einsum("fq,fiq,jq->fij", cf, KD, J(V))
                      + pen * BVV[None])
             else:
-                kz = k * J(w)[None, :] * J(c)[:, None]
+                kz = gpow * k * J(w)[None, :] * J(c)[:, None]
                 M = (torch.einsum("fq,iq,jq->fij", kz, J(V), J(D))
                      - theta * torch.einsum("fq,iq,jq->fij", kz, J(D), J(V))
                      + pen * BVV[None])

@@ -4,7 +4,8 @@ diagonal blocks, block-Jacobi loops, the elasticity apply and the
 DG-norm error indicators."""
 
 from hpdg_tpu_torch.matrixfree.uniform import (  # noqa: F401
-    uniform_sipg_operator, uniform_sipg_factorized)
+    uniform_sipg_operator, uniform_sipg_factorized,
+    uniform_sipg_factorized_host)
 from hpdg_tpu_torch.matrixfree.sumfact import (  # noqa: F401
     sipg_operator, laplace_bulk_operator, mass_operator, naive_sipg_operator)
 from hpdg_tpu_torch.matrixfree.diagonal import sipg_diagonal_blocks  # noqa: F401

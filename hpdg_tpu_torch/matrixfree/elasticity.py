@@ -93,10 +93,13 @@ def elasticity_operator(basis: DGBasis, mu: float = 1.0, lam: float = 1.0,
                         penalty: float = 2.0, dirichlet: bool = False,
                         dtype=torch.float64, plan: AssemblyPlan | None = None,
                         penalty_scaling: str = "measure",
-                        include_bulk: bool = True, device=None):
+                        include_bulk: bool = True, device=None,
+                        tables: dict | None = None):
     """Returns ``apply: {p: [n_p, dim (p+1)^dim]} -> same`` on
     ``device``.  ``include_bulk=False`` gives the skeleton and boundary
-    terms only."""
+    terms only.  ``tables``: the geometry tables to use instead of
+    :func:`elasticity_geom_tables` of ``basis`` (meshes with geometry;
+    the sharded operator passes corrected penalty tables)."""
     mesh = basis.mesh
     require_classic_faces(mesh, "elasticity_operator")
     device = dev.resolve(device)
@@ -104,7 +107,7 @@ def elasticity_operator(basis: DGBasis, mu: float = 1.0, lam: float = 1.0,
     if geo.has_geometry(mesh):
         return _elasticity_operator_geom(basis, mu, lam, penalty, dirichlet,
                                          dtype, plan, penalty_scaling,
-                                         include_bulk, device)
+                                         include_bulk, device, tables)
     d = mesh.dim
     J = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
     ix = lambda a: torch.as_tensor(a, dtype=torch.int64,  # noqa: E731
@@ -225,8 +228,21 @@ def elasticity_operator(basis: DGBasis, mu: float = 1.0, lam: float = 1.0,
     return apply
 
 
+def _pt_grad(X, H):
+    """``du[..., a, c] = sum_b X[..., b, c] H[..., b, a]`` at every point,
+    by broadcasting: per-point 3x3 products as batched GEMMs run far
+    below the card's rates."""
+    return (H.unsqueeze(-1) * X.unsqueeze(-2)).sum(-3)
+
+
+def _pt_vec(r, M):
+    """``sum_k r[..., k] M[..., k, j]`` at every point, by broadcasting."""
+    return (r.unsqueeze(-1) * M).sum(-2)
+
+
 def _elasticity_operator_geom(basis, mu, lam, penalty, dirichlet, dtype,
-                              plan, penalty_scaling, include_bulk, device):
+                              plan, penalty_scaling, include_bulk, device,
+                              tables=None):
     """:func:`elasticity_operator` on a mesh with first-class geometry:
     physical gradients through the per-point ``H`` tables, co-normal
     tractions ``g sigma(u) n_phys`` through the Nanson covectors ``R``
@@ -237,9 +253,9 @@ def _elasticity_operator_geom(basis, mu, lam, penalty, dirichlet, dtype,
     ix = lambda a: torch.as_tensor(a, dtype=torch.int64,  # noqa: E731
                                    device=device)
     eye = torch.eye(d, dtype=dtype, device=device)
-    gt = elasticity_geom_tables(basis, plan, penalty=penalty,
-                                dirichlet=dirichlet,
-                                penalty_scaling=penalty_scaling)
+    gt = tables if tables is not None else elasticity_geom_tables(
+        basis, plan, penalty=penalty, dirichlet=dirichlet,
+        penalty_scaling=penalty_scaling)
 
     bulk = {}
     for p in basis.bucket_degrees if include_bulk else ():
@@ -284,8 +300,8 @@ def _elasticity_operator_geom(basis, mu, lam, penalty, dirichlet, dtype,
         """``[nf, d, nl]``: sum_q zw [u].(g sigma(phi_i e_c) n_phys) with
         P[n,q,c,i] = (d_c phi_i)_phys and Q = R.P."""
         P = torch.einsum("biq,nqbc->nqci", D, H)
-        Q = torch.einsum("nqc,nqci->nqi", R, P)
-        A1 = torch.einsum("nqk,nqki->nqi", jmp, P)
+        Q = _pt_vec(R, P)
+        A1 = _pt_vec(jmp, P)
         return (mu * torch.einsum("nq,nqc,nqi->nci", zw, R, A1)
                 + mu * torch.einsum("nq,nqc,nqi->nci", zw, jmp, Q)
                 + lam * torch.einsum("nq,nqci->nci",
@@ -298,12 +314,12 @@ def _elasticity_operator_geom(basis, mu, lam, penalty, dirichlet, dtype,
             nl = G.shape[1]
             u = x[p].reshape(-1, d, nl)
             # du[n, q, a, c] = physical d_a u_c at the quadrature points
-            du = torch.einsum("nqbc,nqba->nqac",
-                              torch.einsum("ncj,bjq->nqbc", u, G), H)
+            du = _pt_grad(torch.einsum("ncj,bjq->nqbc", u, G), H)
             sw = sig_of(du) * wdet[:, :, None, None]
-            y[p] = torch.einsum(
-                "nqbc,bjq->ncj", torch.einsum("nqac,nqba->nqbc", sw, H),
-                G).reshape(u.shape[0], d * nl)
+            # sum_a sw[n, q, a, c] H[n, q, b, a]
+            T = (H.unsqueeze(-1) * sw.unsqueeze(-3)).sum(-2)
+            y[p] = torch.einsum("nqbc,bjq->ncj", T, G).reshape(
+                u.shape[0], d * nl)
 
         for g in fgroups:
             fg = g["fg"]
@@ -312,13 +328,12 @@ def _elasticity_operator_geom(basis, mu, lam, penalty, dirichlet, dtype,
             u_out = x[fg.p_out][g["out_pos"]].reshape(-1, d, nlo)
             jump = torch.einsum("nci,iq->nqc", u_in, g["Vi"]) \
                 - torch.einsum("nci,iq->nqc", u_out, g["Vo"])
-            duin = torch.einsum("nci,biq,nqba->nqac", u_in, g["Di"],
-                                g["Hi"])
-            duout = torch.einsum("nci,biq,nqba->nqac", u_out, g["Do"],
-                                 g["Ho"])
-            t_avg = 0.5 * (
-                torch.einsum("nqa,nqac->nqc", g["Ri"], sig_of(duin))
-                + torch.einsum("nqa,nqac->nqc", g["Ro"], sig_of(duout)))
+            duin = _pt_grad(torch.einsum("nci,biq->nqbc", u_in, g["Di"]),
+                            g["Hi"])
+            duout = _pt_grad(torch.einsum("nci,biq->nqbc", u_out, g["Do"]),
+                             g["Ho"])
+            t_avg = 0.5 * (_pt_vec(g["Ri"], sig_of(duin))
+                           + _pt_vec(g["Ro"], sig_of(duout)))
             zw, penw = g["zw"], g["penw"]
             zw3 = zw[..., None]
             y_in = torch.einsum("nqc,iq->nci", penw * jump - zw3 * t_avg,
@@ -339,8 +354,8 @@ def _elasticity_operator_geom(basis, mu, lam, penalty, dirichlet, dtype,
             nl = g["V"].shape[0]
             u = x[bg.p][g["pos"]].reshape(-1, d, nl)
             uq = torch.einsum("nci,iq->nqc", u, g["V"])
-            du = torch.einsum("nci,biq,nqba->nqac", u, g["Dall"], g["H"])
-            t_full = torch.einsum("nqa,nqac->nqc", g["R"], sig_of(du))
+            du = _pt_grad(torch.einsum("nci,biq->nqbc", u, g["Dall"]), g["H"])
+            t_full = _pt_vec(g["R"], sig_of(du))
             tv = g["penw"] * uq - g["zw"][..., None] * t_full
             yb = torch.einsum("nqc,iq->nci", tv, g["V"]) \
                 - test_gradient_term(uq, g["zw"], g["Dall"], g["H"], g["R"])

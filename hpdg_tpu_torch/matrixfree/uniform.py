@@ -224,7 +224,9 @@ def sipg_factor_blocks(basis: DGBasis, penalty: float = 2.0,
     operator A = sum_ax L_ax (x) Mm (x) ... (x) Mm (numpy f64).
 
     Returns ``(cells, nb, Mm, D_int, D_lo, D_hi, F12, F21)`` with the
-    line matrices as dicts keyed by axis.
+    line matrices as dicts keyed by axis; shared by
+    :func:`uniform_sipg_factorized` and the native host apply
+    (:func:`uniform_sipg_factorized_host`).
     """
     mesh = basis.mesh
     dim = mesh.dim
@@ -263,6 +265,25 @@ def sipg_factor_blocks(basis: DGBasis, penalty: float = 2.0,
         if cells[ax] == 1:  # degenerate single-element line
             D_lo[ax] = bulk + (MB1 + MB0 if dirichlet else 0.0)
     return cells, nb, Mm, D_int, D_lo, D_hi, F12, F21
+
+
+def uniform_sipg_factorized_host(basis: DGBasis, penalty: float = 2.0,
+                                 dirichlet: bool = False,
+                                 penalty_scaling: str = "measure"):
+    """The native (C++/OpenMP) f64 factorized apply on the HOST: numpy
+    ``(n_elements, nb^3)`` -> same.  3D full uniform lattices only;
+    raises where the lattice does not qualify or ``g++`` is missing.
+    The same operator to f64 roundoff as :func:`uniform_sipg_factorized`,
+    the host residual of verified solves."""
+    from hpdg_tpu_torch import native
+    if basis.mesh.dim != 3:
+        raise ValueError("native factorized apply is 3D-only")
+    _check_uniform(basis, "factorized operator")
+    cells, nb, Mm, D_int, D_lo, D_hi, F12, F21 = sipg_factor_blocks(
+        basis, penalty, dirichlet, penalty_scaling)
+    pack = lambda D: np.stack([D[ax] for ax in range(3)])  # noqa: E731
+    return native.SipgFactApply3(cells, nb, Mm, pack(D_int), pack(D_lo),
+                                 pack(D_hi), pack(F12), pack(F21))
 
 
 def uniform_sipg_factorized(basis: DGBasis, penalty: float = 2.0,

@@ -41,9 +41,12 @@ affine when all cells are parallelepipeds, trilinear otherwise).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from hpdg_tpu_torch import native
 from hpdg_tpu_torch.mesh.structured import (Mesh, from_boxes, Faces,
                                       BoundaryFaces)
 from dataclasses import replace
@@ -125,6 +128,28 @@ def q1_jacobian_local(corners: np.ndarray, xi: np.ndarray) -> np.ndarray:
         dN = prod * sgn[None, None, :, a]
         J[..., a] = np.einsum("nqc,ncd->nqd", dN, corners)
     return J
+
+
+def inv_det(J: np.ndarray):
+    """``(J^-1, det J)`` of a stack of 2x2 or 3x3 matrices by cofactors:
+    per-point batches of tiny matrices, where LAPACK's batched routines
+    spend most of their time per call."""
+    d = J.shape[-1]
+    if d == 2:
+        a, b, c, e = J[..., 0, 0], J[..., 0, 1], J[..., 1, 0], J[..., 1, 1]
+        det = a * e - b * c
+        adj = np.stack([np.stack([e, -b], -1), np.stack([-c, a], -1)], -2)
+        return adj / det[..., None, None], det
+    C = np.empty_like(J)  # C[..., j, i]: cofactor of J[..., i, j]
+    for i in range(3):
+        i1, i2 = (i + 1) % 3, (i + 2) % 3
+        for j in range(3):
+            j1, j2 = (j + 1) % 3, (j + 2) % 3
+            C[..., j, i] = (J[..., i1, j1] * J[..., i2, j2]
+                            - J[..., i1, j2] * J[..., i2, j1])
+    det = (J[..., 0, 0] * C[..., 0, 0] + J[..., 0, 1] * C[..., 1, 0]
+           + J[..., 0, 2] * C[..., 2, 0])
+    return C / det[..., None, None], det
 
 
 def q1_child_corners(corners: np.ndarray, parent_idx: np.ndarray,
@@ -258,8 +283,8 @@ def effective_tensor(mesh: Mesh, elems, k, pts):
         return (np.einsum("eab,eqbc,edc->eqad", Ai, k, Ai)
                 * det[:, None, None, None])
     J = jacobians(mesh, elems, pts)          # (n, q, d, d)
-    Ji = np.linalg.inv(J)
-    det = np.abs(np.linalg.det(J))           # (n, q)
+    Ji, det = inv_det(J)
+    det = np.abs(det)                        # (n, q)
     G = det[..., None, None] * np.einsum("nqab,nqcb->nqac", Ji, Ji)
     if k is None:
         return G
@@ -281,8 +306,8 @@ def pullback_factors(mesh: Mesh, elems, pts):
     else:
         J = np.broadcast_to(mesh.jac[elems][:, None],
                             (len(elems), nq, d, d))
-    return (np.ascontiguousarray(np.linalg.inv(J)),
-            np.ascontiguousarray(np.abs(np.linalg.det(J))))
+    Ji, det = inv_det(J)
+    return np.ascontiguousarray(Ji), np.ascontiguousarray(np.abs(det))
 
 
 def fold_medium(Ji, det, k):
@@ -719,6 +744,18 @@ def from_cell_vertices(points, cells, tol: float = 1e-9) -> Mesh:
     vtk_of_bit = np.array([int(np.where((ref == B[c]).all(axis=1))[0][0])
                            for c in range(nc)])
     cells_bit = cells[:, vtk_of_bit]  # default frame, bit convention
+
+    # native fast path (hpdg_frame_cells): the same matching and BFS in
+    # C++; the Python loops below are the readable route, and the one
+    # that assigns twist codes where the native kernel returns None
+    if (os.environ.get("HPDG_NATIVE_TOPOLOGY", "1") != "0"
+            and native.available()):
+        nat = native.frame_cells(np.asarray(cells_bit, np.int64), dim)
+        if nat is not None:
+            order_n, (fi, fo, fa), (be, ba, bs) = nat
+            return _mesh_from_frames(
+                points, order_n, Faces(inside=fi, outside=fo, axis=fa),
+                BoundaryFaces(elem=be, axis=ba, side=bs), dim, tol)
 
     ffaces = _frame_faces(dim)
     face_keys = sorted(ffaces.keys())

@@ -16,9 +16,12 @@ is always +e_axis.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
+
+from hpdg_tpu_torch import native
 
 
 @dataclass(frozen=True)
@@ -319,12 +322,15 @@ def _validate_unmatched(lower, extent, bfaces: BoundaryFaces, tol: float):
 
 def from_boxes(lower: np.ndarray, extent: np.ndarray, parent=None,
                child_pos=None, parent_mesh=None,
-               validate: bool = True,
+               topology: str = "auto", validate: bool = True,
                jac=None, shift=None, corners=None) -> Mesh:
-    """Mesh of axis-aligned boxes, faces matched by the numpy matcher.
-    ``validate`` checks that no unmatched faces look interior
-    (overlapping opposite-facing "boundary" faces) and raises instead of
-    producing wrong physics."""
+    """Mesh of axis-aligned boxes.  ``topology``: "auto" (the native C++
+    face matcher for 4096 or more elements when ``g++`` is available and
+    ``HPDG_NATIVE_TOPOLOGY`` is not "0"; it may order the faces
+    differently), "native" (raises without ``g++``), or "python" (the
+    numpy matcher).  ``validate`` checks that no unmatched faces look
+    interior (overlapping opposite-facing "boundary" faces) and raises
+    instead of producing wrong physics."""
     lower = np.asarray(lower, dtype=np.float64)
     extent = np.asarray(extent, dtype=np.float64)
     # quantized face keys divide by extent.min(): non-finite coordinates
@@ -334,7 +340,19 @@ def from_boxes(lower: np.ndarray, extent: np.ndarray, parent=None,
     if extent.size and extent.min() <= 0:
         raise ValueError("mesh elements must have positive extent "
                          f"(min extent = {extent.min()!r})")
-    faces, bfaces = _build_faces(lower, extent)
+    if topology not in ("auto", "native", "python"):
+        raise ValueError(f"topology must be 'auto', 'native' or 'python', "
+                         f"got {topology!r}")
+    use_native = topology == "native" or (
+        topology == "auto"
+        and os.environ.get("HPDG_NATIVE_TOPOLOGY", "1") != "0"
+        and lower.shape[0] >= 4096 and native.available())
+    if use_native:
+        fi, fo, fa, fn, be, ba, bs = native.build_faces(
+            lower, extent, float(extent.min() * 1e-6))
+        faces, bfaces = Faces(fi, fo, fa, fn), BoundaryFaces(be, ba, bs)
+    else:
+        faces, bfaces = _build_faces(lower, extent)
     if validate:
         _validate_unmatched(lower, extent, bfaces, float(extent.min() * 1e-6))
     return Mesh(dim=lower.shape[1], lower=lower, extent=extent, faces=faces,

@@ -32,6 +32,19 @@ from hpdg_tpu_torch.parallel.comm import (ShardGroup, Sharding,
                                           resolve_group, safe_div)
 
 
+def detached_copies(m, L: int, gap: float):
+    """``L`` copies of box mesh ``m`` along axis 0, ``gap`` apart so that
+    no two share a face (copy by copy, each in ``m``'s element order):
+    one mesh in which one operator serves a rank's ``L`` shards."""
+    if L == 1:
+        return m
+    shift = np.zeros(m.dim)
+    shift[0] = gap
+    return hmesh.from_boxes(
+        np.concatenate([m.lower + s * shift for s in range(L)]),
+        np.tile(m.extent, (L, 1)), validate=False)
+
+
 @dataclass
 class ShardedPoisson:
     """A sharded 2D/3D Poisson SIPG problem (uniform degree)."""
@@ -73,11 +86,7 @@ def build_sharded_poisson(cells, p: int, group: ShardGroup | None = None,
                              upper=tuple(np.asarray(local_cells) * h))
     lbasis = DGBasis(lmesh, np.full(n_local, p))
     # the rank's L slabs as detached copies (a gap of one element)
-    gap = np.zeros(dim)
-    gap[0] = (local_cells[0] + 1) * h[0]
-    cmesh = hmesh.from_boxes(
-        np.concatenate([lmesh.lower + s * gap for s in range(L)]),
-        np.tile(lmesh.extent, (L, 1)), validate=False)
+    cmesh = detached_copies(lmesh, L, (local_cells[0] + 1) * h[0])
     cbasis = DGBasis(cmesh, np.full(L * n_local, p))
     plan = build_plan(cbasis)
     # the slab x-boundaries are handled by the masked interface terms

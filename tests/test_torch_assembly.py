@@ -179,3 +179,59 @@ def test_assemble_coef_parts_matches_reference(case, dirichlet, scaling):
     with pytest.raises(ValueError, match="coef_parts"):
         t_assemble(tb, coef_parts=True, diffusion=lambda x: x[..., 0],
                    device=CPU)
+
+
+GEOM_SCALE_CASES = [((4, 3), "box"), ((3, 2, 2), "box"), ((4, 3), "affine"),
+                    ((3, 2, 2), "medium")]
+
+
+@pytest.mark.parametrize("cells,kind", GEOM_SCALE_CASES,
+                         ids=[f"{len(c)}d-{k}" for c, k in GEOM_SCALE_CASES])
+@pytest.mark.parametrize("scaling", ["measure", "normal"])
+@pytest.mark.parametrize("s", [0.5, 2.0])
+def test_assemble_geom_scale_matches_reference(cells, kind, scaling, s):
+    """``geom_scale=s``: the operator of the mesh scaled by s (the
+    consistency terms by s^(dim-2), the penalty by the same under
+    "normal", the sigma1 term by s^-2); s given to the port as a float
+    and as a 0-dim tensor."""
+    from hpdg_tpu.mesh import geometry as rgeo
+    from hpdg_tpu_torch.mesh import geometry as tgeo
+    dim = len(cells)
+    n = int(np.prod(cells))
+    degrees = np.random.default_rng(n).choice([1, 2], size=n)
+    rm, tm = rmesh.structured(cells), tmesh.structured(cells)
+    if kind == "affine":
+        A = np.eye(dim) + 0.2 * np.triu(np.ones((dim, dim)), 1)
+        rm, tm = rgeo.affine_image(rm, A), tgeo.affine_image(tm, A)
+    rb, tb = RBasis(rm, degrees), TBasis(tm, degrees)
+    kw = dict(penalty=3.0, dirichlet=True, penalty_scaling=scaling,
+              sigma1=0.5)
+    if kind == "medium":
+        kw["diffusion"] = lambda x: 1.0 + x[..., 0] ** 2
+    RA = r_assemble(rb, dtype=jnp.float64, geom_scale=s, **kw)
+    scale = max(float(np.abs(np.asarray(v)).max()) for v in RA.values.values())
+    for gs in (s, torch.tensor(s, dtype=torch.float64)):
+        TA = t_assemble(tb, geom_scale=gs, **kw, device=CPU)
+        assert RA.values.keys() == TA.values.keys()
+        for k in RA.values:
+            d = np.abs(np.asarray(RA.values[k]) - TA.values[k].numpy()).max()
+            assert d <= 1e-12 * scale, (k, d / scale)
+
+
+def test_geom_scale_equals_the_scaled_mesh():
+    """At s = 0.5 the values equal those of the mesh with halved
+    extents, and s = 1 those of no scaling."""
+    cells, p = (3, 2, 2), 2
+    n = int(np.prod(cells))
+    tb = TBasis(tmesh.structured(cells), np.full(n, p))
+    half = TBasis(tmesh.structured(cells, upper=(0.5, 0.5, 0.5)),
+                  np.full(n, p))
+    for sc in ("measure", "normal"):
+        kw = dict(penalty=3.0, dirichlet=True, penalty_scaling=sc,
+                  device=CPU)
+        A1, A0 = t_assemble(tb, geom_scale=1.0, **kw), t_assemble(tb, **kw)
+        Ah, Aw = t_assemble(tb, geom_scale=0.5, **kw), t_assemble(half, **kw)
+        for k in A0.values:
+            assert torch.equal(A1.values[k], A0.values[k])
+            m = Aw.values[k].abs().max()
+            assert (Ah.values[k] - Aw.values[k]).abs().max() <= 1e-12 * m

@@ -11,9 +11,10 @@ ported examples, in f64 on the CPU.
   example tests: every printed line agrees with the reference script's,
   integers exactly and reported numbers to their printed digits
   (residuals at roundoff level only by being below 1e-8); the
-  ``--sharded`` branch of ``elasticity`` raises, naming ROADMAP item 21b,
-  and that of ``anisotropic_line_mg`` runs on a one-process shard group
-  (held against the reference in ``test_torch_parallel_examples.py``).
+  ``--sharded`` branches of ``elasticity`` and ``anisotropic_line_mg``
+  run on a one-process shard group (held against the reference in
+  ``test_torch_parallel_elasticity.py`` and
+  ``test_torch_parallel_examples.py``).
 """
 
 import os
@@ -265,8 +266,12 @@ def test_example_reports_match_reference(name, mod, argv, capsys):
 @pytest.mark.parametrize("mod", [elasticity, anisotropic_line_mg])
 def test_sharded_example_branches_wait_for_item_21(mod):
     if mod is elasticity:
-        with pytest.raises(NotImplementedError, match="item 21b"):
-            mod.main(["--sharded", "1", "--device", "cpu"])
+        # the sharded elasticity is ported: the branch runs (one shard
+        # here; 8 against the reference in test_torch_parallel_elasticity)
+        out = mod.main(["--sharded", "1", "--shards", "1", "--n", "2",
+                        "--p", "1", "--device", "cpu"])
+        assert out["sharded"]["ndev"] == 1
+        assert out["sharded"]["rel"] < 1e-6
         return
     out = mod.main(["--sharded", "1", "--cells", "8,4,4", "--p", "1",
                     "--cycles", "2", "--shards", "2", "--device", "cpu"])
