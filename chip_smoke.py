@@ -29,7 +29,16 @@ Phases (any failure ends the run with a nonzero exit code):
    that K1 (asked for by ``use_kernel=True``) ran as every level's
    operator, as often as the hierarchy implies, and that the patch
    smoother was built on every level whose patch block fits
-   ``PATCH_MAX_BLOCK``; at 32^3 a profiler window of 3 V-cycles: K1's
+   ``PATCH_MAX_BLOCK``; then both solves again by the stepwise route
+   (3 runs: the spread of two stepwise histories) and by
+   ``refinement_solve(fused=True, n_runs=3)``, the step captured once as
+   two CUDA graphs and replayed: verified <= 1e-8, the stepwise steps,
+   the history within that spread, K1's launches captured in the chain
+   graph (one chain) times the chain's replays; capture and per-run
+   seconds and the peak new memory of both routes; one V-cycle by CUDA
+   events eager and replayed from a graph; at each level shape K1
+   replayed from a graph equal to its eager launch bit for bit; at
+   32^3 profiler windows of 3 V-cycles, eager and replayed: K1's
    device ms per cycle, all device ms per cycle, wall ms per cycle and
    the busy share;
 5. the entry step of ``__graft_entry__.entry()``: ``sipg_operator`` at 8^3
@@ -55,6 +64,11 @@ Phases (any failure ends the run with a nonzero exit code):
    steps); verified <= 1e-8 by a host numpy f64 residual; set-up and
    solve seconds, ms per V-cycle (CUDA events), launches per V-cycle
    and the top ops by device time (profiler over 2 cycles), peak memory;
+   the same solve by ``refinement_solve(fused=True)`` as
+   ``bench.py:753-755`` runs it (one run, not its three: the script's
+   time), verified <= 1e-8, with a stepwise run beside it, and the
+   V-cycle eager and replayed from a graph (CUDA events, profiler, busy
+   share);
    and the matrix-free elasticity apply on a seeded vector, f64 against
    the assembled A64 (1e-11 of max|y|) and f32 against f64 (1e-5), its
    ms per apply (CUDA events, median of 10) and launches per apply
@@ -454,7 +468,7 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2, smoother: str = "patch",
     from hpdg_tpu_torch.ops.uniform_stencil import UniformStencilOperator
     from hpdg_tpu_torch.solvers.multigrid import (PATCH_MAX_BLOCK,
                                                   matrixfree_multigrid_solver)
-    from hpdg_tpu_torch.solvers.refine import refinement_solve
+    from hpdg_tpu_torch.solvers.refine import capture_graph, refinement_solve
 
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -496,11 +510,11 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2, smoother: str = "patch",
         if built != fits:
             raise AssertionError(f"patch smoothers built {built}, expected "
                                  f"{fits} from PATCH_MAX_BLOCK")
+    kw_solve = dict(chain_k=chain_k, tol=1e-8, max_steps=max_steps,
+                    host_residual=host_residual)
     for op in ops:
         op.launches = 0
-    x64, res = refinement_solve(step, residual, b64, chain_k=chain_k,
-                                tol=1e-8, max_steps=max_steps,
-                                host_residual=host_residual)
+    x64, res = refinement_solve(step, residual, b64, **kw_solve)
     torch.cuda.synchronize()
     launches = sum(op.launches for op in ops)
     # per V-cycle and non-coarse level: one pre and one post sweep with
@@ -524,6 +538,10 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2, smoother: str = "patch",
     if not (res["verified"] and res["rel_residual"] <= 1e-8):
         raise AssertionError(f"solve at {n}^3 not verified: rel "
                              f"{res['rel_residual']:.3e}")
+
+    fused = fused_solve(f"solve n={n}^3 {smoother}", step, residual, b64,
+                        kw_solve, res, dev, ops=ops,
+                        chain_launches=chain_k * per_cycle)
 
     # single-cycle contraction (f64 residual of the f32 iterates), and
     # the time of one V-cycle by CUDA events
@@ -556,47 +574,224 @@ def solve(n: int, dev, p: int = 4, chain_k: int = 2, smoother: str = "patch",
           f"loop_s={res['seconds_loop']:.3f} peak_mem_bytes={peak} "
           f"K1_launches={launches} expected={expected} "
           f"({per_cycle} per V-cycle)", flush=True)
-    prof = profile_cycles(step, x0, b32) if n == 32 else None
-    if prof is not None:
-        print(f"{tag} profile (3 V-cycles): K1 {prof['k1_ms']:.3f} "
-              f"device ms/cycle ({prof['k1_launches']:.0f} launches), all "
-              f"kernels {prof['device_ms']:.3f} device ms/cycle "
-              f"({prof['launches']:.0f} launches), wall "
-              f"{prof['wall_ms']:.3f} ms/cycle, busy share "
-              f"{prof['device_ms'] / prof['wall_ms']:.3f}", flush=True)
-    elif n == 32:
-        print(f"{tag} profile: not measured (no device events)",
-              flush=True)
+    graph, _ = capture_graph(lambda: step(x0, b32), dev)
+    t_graph = float(np.median(event_times(graph.replay, 5)))
+    print(f"{tag} V-cycle by events: eager {t_cycle:.3f} ms, replayed "
+          f"graph {t_graph:.3f} ms", flush=True)
+    if n == 32:
+        for route, fn in (("eager", lambda: step(x0, b32)),
+                          ("replayed", graph.replay)):
+            prof = profile_cycles(fn)
+            if prof is None:
+                print(f"{tag} profile {route}: not measured (no device "
+                      f"events)", flush=True)
+                continue
+            print(f"{tag} profile {route} (3 V-cycles): K1 "
+                  f"{prof['k1_ms']:.3f} device ms/cycle "
+                  f"({prof['k1_launches']:.0f} launches), all kernels "
+                  f"{prof['device_ms']:.3f} device ms/cycle "
+                  f"({prof['launches']:.0f} launches), wall "
+                  f"{prof['wall_ms']:.3f} ms/cycle, busy share "
+                  f"{prof['device_ms'] / prof['wall_ms']:.3f}", flush=True)
+            if prof["k1_launches"] != per_cycle:
+                raise AssertionError(f"{tag}: the profiler saw "
+                                     f"{prof['k1_launches']} K1 launches per "
+                                     f"{route} V-cycle, not {per_cycle}")
+    del graph
+    k1_graph_vs_eager(tag, ops, dev)
     # contraction per V-cycle of the refinement: the anchored f64
     # residual over all cycles (each chain starts from the normalized
     # residual, so the f32 floor of the chain from zero does not enter)
     anchored = (res["history"][-1] / res["history"][0]) ** (
         1.0 / max(1, res["cycles"]))
     out = dict(ndof=basis.ndof, launches=launches, anchored=anchored,
-               first=rdiag[1], steps=res["steps"], cycles=res["cycles"])
+               first=rdiag[1], steps=res["steps"], cycles=res["cycles"],
+               graph_launches=fused["graph_launches"])
     if n == 32:  # phase 17d re-verifies the solution on the host
         out.update(basis=basis, p=p, A_host=A_host, b_host=b_host,
                    x_host={k: v.cpu() for k, v in x64.items()})
     return out
 
 
-def profile_cycles(step, x0, b32, cycles: int = 3):
-    """Device ms of K1 and of all kernels, and wall ms, per V-cycle over
-    a profiler window of ``cycles`` V-cycles; ``None`` where the profiler
-    saw no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    step(x0, b32)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+def _history_gap(a: list, b: list) -> float:
+    """Largest relative difference of two refinement histories over the
+    steps both ran."""
+    return max(abs(x - y) / x for x, y in zip(a, b))
+
+
+def traced(body, warm):
+    """``body()`` in a ``torch.profiler`` window opened one warm-up step
+    earlier, in which ``warm()`` runs: CUPTI can miss the first kernels
+    of a fresh trace, and the warm-up step takes that loss.  Returns the
+    profile and the wall seconds of ``body()`` to its synchronize."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
-        for _ in range(cycles):
-            step(x0, b32)
+        body()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def graph_k1_launches(step, residual, b64: dict, kw: dict, ops,
+                      chain_launches: int) -> int:
+    """K1 launches that the chain graph's replays make on the card in one
+    fused run, counted by the profiler (CUPTI records each kernel a
+    replay runs).  The wrapper's ``launches`` counts the eager warm-up's,
+    which the window holds too; the rest must be one chain's launches
+    for every chain replay, ``steps - 1`` of them."""
+    from torch.autograd import DeviceType
+
+    from hpdg_tpu_torch.solvers.refine import refinement_solve
+    for op in ops:
+        op.launches = op.captured = 0
+    kw = {k: v for k, v in kw.items() if k != "host_residual"}
+    out = {}
+
+    def body():
+        out["info"] = refinement_solve(step, residual, b64, fused=True,
+                                       **kw)[1]
+
+    prof, _ = traced(body, lambda: residual(b64))
+    info = out["info"]
+    seen = sum(a.count for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA and "stencil_" in a.key)
+    warm = sum(op.launches for op in ops)
+    replayed = seen - warm
+    if (warm != chain_launches
+            or replayed != chain_launches * (info["steps"] - 1)):
+        raise AssertionError(
+            f"K1 launches seen by the profiler in a fused run: {seen}, "
+            f"{warm} of them eager, expected {chain_launches} eager and "
+            f"{chain_launches} x {info['steps'] - 1} chain replays")
+    return replayed
+
+
+def fused_solve(tag: str, step, residual, b64: dict, kw: dict,
+                stepwise: dict, dev, ops=(), chain_launches: int = 0,
+                n_runs: int = 3) -> dict:
+    """Phases 4 and 8: the solve that gave ``stepwise`` again, 3 runs by
+    the stepwise route, then ``n_runs`` by ``refinement_solve(fused=
+    True)``, whose two CUDA graphs are captured once.  index_add_
+    atomics make no two card runs equal where indices collide, so the
+    yardstick is the spread of the stepwise runs: the largest gap
+    between any two of the four stepwise histories.  Asserts the fused
+    solve verified <= 1e-8, every fused run in the stepwise solve's
+    steps, and each fused history within that spread of the nearest
+    stepwise one.  With K1's ``ops``: the launches captured in the chain
+    graph are ``chain_launches`` (one chain), the warm-up's eager ones as
+    many, and ``graph_k1_launches`` counts on the card what the graph's
+    replays launch in a further, profiled fused run.  Prints both
+    routes' run seconds and peak new memory, the capture seconds and the
+    launch counts."""
+    from hpdg_tpu_torch.solvers.refine import refinement_solve
+
+    def route(n, **extra):
+        mem0 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, info = refinement_solve(step, residual, b64, n_runs=n, **kw,
+                                   **extra)
+        torch.cuda.synchronize()
+        return info, torch.cuda.max_memory_allocated(dev) - mem0
+
+    again, peak_eager = route(3)
+    hists = [stepwise["history"]] + [r["history"] for r in again["runs"]]
+    spread = max(_history_gap(a, b)
+                 for i, a in enumerate(hists) for b in hists[i + 1:])
+    for op in ops:
+        op.launches = op.captured = 0
+    fused, peak_fused = route(n_runs, fused=True)
+    captured = sum(op.captured for op in ops)
+    warm = sum(op.launches for op in ops)
+    gap = max(min(_history_gap(h, r["history"]) for h in hists)
+              for r in fused["runs"])
+    print(f"{tag} fused (n_runs={n_runs}): capture_s="
+          f"{fused['seconds_capture']:.4f} run_s="
+          f"{[round(r['seconds'], 4) for r in fused['runs']]} loop_s="
+          f"{fused['seconds_loop']:.4f} steps="
+          f"{[r['steps'] for r in fused['runs']]} replays={fused['replays']} "
+          f"verified_rel_residual={fused['rel_residual']:.3e} "
+          f"peak_new_bytes={peak_fused}; stepwise run_s="
+          f"{[round(r['seconds'], 4) for r in again['runs']]} loop_s="
+          f"{again['seconds_loop']:.4f} steps="
+          f"{[r['steps'] for r in again['runs']]} peak_new_bytes="
+          f"{peak_eager}", flush=True)
+    print(f"{tag} fused history={['%.6e' % h for h in fused['history']]} "
+          f"gap to the nearest stepwise history {gap:.3e} (largest gap "
+          f"between two of {len(hists)} stepwise runs {spread:.3e})",
+          flush=True)
+    if not (fused["verified"] and fused["rel_residual"] <= 1e-8):
+        raise AssertionError(f"{tag}: fused solve not verified: rel "
+                             f"{fused['rel_residual']:.3e}")
+    if any(r["steps"] != stepwise["steps"] for r in fused["runs"]):
+        raise AssertionError(f"{tag}: fused steps differ from the "
+                             f"stepwise {stepwise['steps']}")
+    if gap > spread:
+        raise AssertionError(f"{tag}: fused history {gap:.3e} from the "
+                             f"stepwise ones, beyond {spread:.3e}")
+    graph_launches = None
+    if ops:
+        chains = sum(r["steps"] - 1 for r in fused["runs"])
+        if (captured != chain_launches or warm != chain_launches
+                or fused["replays"]["chain"] != chains):
+            raise AssertionError(f"{tag}: K1 launches in the graphs do not "
+                                 f"match the hierarchy")
+        graph_launches = graph_k1_launches(step, residual, b64, kw, ops,
+                                           chain_launches)
+        print(f"{tag} K1 in the chain graph: {captured} captured launches "
+              f"(one chain: {chain_launches}), {warm} in the warm-up, "
+              f"{chains} chain replays over {n_runs} runs; a profiled fused "
+              f"run: {graph_launches} launches from the graph's "
+              f"{graph_launches // chain_launches} replays on the card",
+              flush=True)
+    return dict(graph_launches=graph_launches, info=fused)
+
+
+def k1_graph_vs_eager(tag: str, ops, dev):
+    """Phase 4, continued: at each level shape K1 replayed from a graph
+    of one apply against its eager launch on the same input, bit for bit
+    (K1 sums in a fixed order, without atomics)."""
+    from hpdg_tpu_torch.solvers.refine import capture_graph
+
+    rng = np.random.default_rng(11)
+    for op in ops:
+        n, bs = op.basis.mesh.n_elements, op.tables.bs
+        u = torch.as_tensor(rng.standard_normal((n, bs)),
+                            dtype=torch.float32, device=dev)
+        y_eager = op.launch(u)
+        graph, y_graph = capture_graph(lambda: op.launch(u), dev)  # noqa: B023
+        graph.replay()
+        torch.cuda.synchronize()
+        same = torch.equal(y_eager, y_graph)
+        print(f"{tag} K1 graph replay vs eager at {n}e bs={bs}: "
+              f"{'bitwise equal' if same else 'DIFFER'}", flush=True)
+        if not same:
+            raise AssertionError(f"{tag}: K1 in a graph differs from K1 "
+                                 f"eager at {n}e bs={bs}")
+
+
+def profile_cycles(cycle, cycles: int = 3):
+    """Device ms of K1 and of all kernels, and wall ms, per V-cycle over
+    a profiler window of ``cycles`` calls of ``cycle()`` (one V-cycle,
+    eager or a graph's replay); ``None`` where the profiler saw no
+    device activity."""
+    from torch.autograd import DeviceType
+
+    def body():
+        for _ in range(cycles):
+            cycle()
+
+    prof, wall = traced(body, cycle)
+    # the window's step annotation also has a device span (its wall
+    # time): it is not a kernel
     kernels = [a for a in prof.key_averages()
-               if a.device_type == DeviceType.CUDA]
+               if a.device_type == DeviceType.CUDA
+               and not a.key.startswith("ProfilerStep")]
     if not kernels:
         return None
     k1 = [a for a in kernels if "stencil_" in a.key]
@@ -836,7 +1031,7 @@ def elasticity_solve(dev, n_el: int = 24):
     from hpdg_tpu_torch.solvers import smoothers as sm
     from hpdg_tpu_torch.solvers.multigrid import (multigrid_solver,
                                                   setup_hierarchy)
-    from hpdg_tpu_torch.solvers.refine import refinement_solve
+    from hpdg_tpu_torch.solvers.refine import capture_graph, refinement_solve
 
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -911,9 +1106,10 @@ def elasticity_solve(dev, n_el: int = 24):
                          {k: v.numpy() for k, v in x.items()})
         return {k: torch.from_numpy(b_host[k] - Ax[k]) for k in keys}
 
-    x64, res = refinement_solve(
-        step, lambda x: bv.sub(b64, bm.matvec(A64, x)), b64, chain_k=10,
-        tol=1e-8, max_steps=10, host_residual=host_residual)
+    residual = lambda x: bv.sub(b64, bm.matvec(A64, x))  # noqa: E731
+    kw_solve = dict(chain_k=10, tol=1e-8, max_steps=10,
+                    host_residual=host_residual)
+    x64, res = refinement_solve(step, residual, b64, **kw_solve)
     finite = all(bool(torch.isfinite(v).all()) for v in x64.values())
     shapes = all(tuple(x64[k].shape) == (basis.bucket_size(k),
                                          3 * basis.n_local(k)) for k in keys)
@@ -936,6 +1132,21 @@ def elasticity_solve(dev, n_el: int = 24):
     if not (res["verified"] and res["rel_residual"] <= 1e-8):
         raise AssertionError(f"elasticity not verified: rel "
                              f"{res['rel_residual']:.3e}")
+    # bench.py:753-755's route, fused, but one fused run, not three (15 s
+    # less of the script's time limit); three stepwise runs give the
+    # spread that the fused history is held to
+    fused_solve("elasticity", step, residual, b64, kw_solve, res, dev,
+                n_runs=1)
+    graph, _ = capture_graph(lambda: step(x0, b32), dev)
+    t_graph = float(np.median(event_times(graph.replay, 3)))
+    prof_graph = profile_apply(graph.replay, reps=2)
+    print_profile("elasticity V-cycle replayed", prof_graph, unit="cycle")
+    busy = lambda pr: ("not measured" if pr is None  # noqa: E731
+                       else f"{pr['device_ms'] / pr['wall_ms']:.3f}")
+    print(f"elasticity V-cycle by events: eager {t_cycle:.3f} ms, replayed "
+          f"graph {t_graph:.3f} ms; busy share eager {busy(prof)}, "
+          f"replayed {busy(prof_graph)}", flush=True)
+    del graph
     return dict(assembly_s=t_asm, assembly_peak_gb=asm_peak_gb,
                 peak_gb=peak / 1e9, apply_ms=apply_ms)
 
@@ -3033,6 +3244,7 @@ def main() -> int:
         "source": "hpdg_tpu_torch/csrc/uniform_stencil.cu",
         "replaces": "hpdg_tpu/ops/pallas_uniform.py:230",
         "launches": main_run["launches"],
+        "graph_launches": main_run["graph_launches"],
         "max_abs_err": t4["max_abs_err"],
         "ms": t4["ms"],
         "plain_ms": t4["plain_ms"],

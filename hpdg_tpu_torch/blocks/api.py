@@ -68,9 +68,10 @@ def solve_linear(basis: DGBasis, A, b, x0=None, tol: float = 1e-8,
     "mf" (the matrix-free solver, sum-factorized levels in ``b``'s dtype
     unless ``use_kernel=True`` asks for the stencil kernel; its cycle
     iterated against ``A``), or "onchip": f32 V-cycle chains of an f32
-    copy of ``A`` inside the f64 refinement (``solvers.refine``), the f64
-    residual on the device, the answer verified by a host numpy f64
-    SpMV.  Returns ``(x, info)``."""
+    copy of ``A`` inside the f64 refinement (``solvers.refine``, fused as
+    the reference's: on a card each step replays two captured CUDA
+    graphs), the f64 residual on the device, the answer verified by a
+    host numpy f64 SpMV.  Returns ``(x, info)``."""
     x0 = bv.zeros_like(b) if x0 is None else x0
     matvec = lambda v: bm.matvec(A, v)  # noqa: E731
     if method == "onchip":
@@ -92,7 +93,7 @@ def solve_linear(basis: DGBasis, A, b, x0=None, tol: float = 1e-8,
         return refinement_solve(
             step32, lambda x: bv.sub(b, matvec(x)), b, chain_k=chain_k,
             tol=tol, max_steps=max(1, -(-maxiter // chain_k)),
-            host_residual=host_residual)
+            host_residual=host_residual, fused=True)
     if method == "mf":
         from hpdg_tpu_torch.solvers.multigrid import \
             matrixfree_multigrid_solver

@@ -231,7 +231,8 @@ class UniformStencilOperator:
     own dtype.  CUDA tensors run the kernel: f32, contiguous, 16-byte
     aligned, shape ``[n, bs]`` with n bs < 2^31, on the device the
     operator was built for; anything else raises.  ``launches`` counts
-    kernel launches.
+    kernel launches; ``captured`` counts launches recorded into a CUDA
+    graph under capture, which run on every replay of that graph.
     """
 
     def __init__(self, basis: DGBasis, penalty: float = 2.0,
@@ -243,10 +244,16 @@ class UniformStencilOperator:
                                      penalty_scaling)
         self.p = self.tables.p
         self.launches = 0
+        self.captured = 0
         self._plain = {}  # dtype -> plain twin on the CPU
         self._k = None
         if self.device.type == "cuda":
             self._k = self._device_tables()
+            # build and load the library and, for the GEMM
+            # instantiations, set the kernel's shared-memory attributes
+            # now: neither may happen while a CUDA graph is captured
+            with torch.cuda.device(self.device):
+                occupancy(self.tables.bs)
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
 
@@ -305,7 +312,10 @@ class UniformStencilOperator:
         if rc != 0:
             raise RuntimeError(f"uniform stencil kernel launch failed: "
                                f"CUDA error {rc}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
         return y
 
 

@@ -112,7 +112,8 @@ class MultigridData:
 
 
 def setup_hierarchy(basis: DGBasis, A: bm.BlockSparseMatrix,
-                    meshes: list | None = None, dtype=torch.float64,
+                    meshes: list | None = None,
+                    coarse_bases: list | None = None, dtype=torch.float64,
                     h_first: bool = False) -> MultigridData:
     """Build the p+h hierarchy with Galerkin coarse matrices.
 
@@ -121,6 +122,8 @@ def setup_hierarchy(basis: DGBasis, A: bm.BlockSparseMatrix,
     grid transfers extend the hierarchy below p=1.  ``h_first=True``
     puts the h-levels at the top (at full degree) and the p-levels
     below, on the coarsest mesh (anisotropic semicoarsening chains).
+    ``coarse_bases`` is accepted and not read, as in the reference, so
+    that its positional calls build the same hierarchy here.
     """
     bases, matrices, transfers = [basis], [A], []
     cur, curA = basis, A

@@ -9,7 +9,11 @@ K1 is held against its plain twin (1e-5 of max|y|: f32 sums in another
 order); the CUDA V-cycle against the same cycle on CPU tensors (the twin
 path, f32); the refinement solve on the card is verified to 1e-8; the
 matrix-free solver's default route in f64 on the card, and its refusal
-of levels K1 cannot take when asked for the kernel.
+of levels K1 cannot take when asked for the kernel.  The fused
+refinement solve (two captured CUDA graphs per step) against the
+stepwise one, bit for bit (nothing on that path sums with atomics); a
+step that syncs with the host makes it raise; K1 replayed from a graph
+equals K1 eager bit for bit.
 """
 
 import numpy as np
@@ -25,6 +29,7 @@ from hpdg_tpu_torch.matrixfree.uniform import (uniform_sipg_factorized,
                                                uniform_sipg_operator)
 from hpdg_tpu_torch.ops import uniform_stencil as us
 from hpdg_tpu_torch.solvers import matrixfree_multigrid_solver, refinement_solve
+from hpdg_tpu_torch.solvers.refine import capture_graph
 
 CPU = "cpu"  # the port defaults to the card; these tests run on the CPU
 
@@ -165,3 +170,73 @@ def test_use_kernel_raises_where_k1_cannot_take_a_level(dev):
     with pytest.raises(ValueError, match="geometry"):
         matrixfree_multigrid_solver(tg, meshes=sheared, use_kernel=True,
                                     dtype=torch.float32, device=dev, **KW)
+
+
+def _patch_problem(dev):
+    meshes = tmesh.hierarchy(tmesh.structured((3, 3, 3)), 1)
+    tb = DGBasis(meshes[-1], np.full(meshes[-1].n_elements, 2))
+    step, info = matrixfree_multigrid_solver(tb, meshes=meshes,
+                                             smoother="patch",
+                                             use_kernel=True,
+                                             dtype=torch.float32,
+                                             device=dev, **KW)
+    f = lambda x: torch.sin(np.pi * x[..., 0]) * (1.0 + x[..., 1])  # noqa: E731
+    b64 = l2_functional(tb, f, device=dev)
+    A64 = uniform_sipg_factorized(tb, device=dev, **KW)
+    return step, info["operators"], b64, lambda x: bv.sub(b64, A64(x))
+
+
+def test_fused_refinement_on_card_equals_stepwise(dev):
+    step, ops, b64, residual = _patch_problem(dev)
+    kw = dict(chain_k=2, tol=1e-8, max_steps=8)
+    xs, info_s = refinement_solve(step, residual, b64, **kw)
+    for op in ops:
+        op.launches = op.captured = 0
+    xf, info_f = refinement_solve(step, residual, b64, fused=True, n_runs=2,
+                                  **kw)
+    assert info_f["steps"] == info_s["steps"] >= 3
+    assert info_f["history"] == info_s["history"]
+    assert torch.equal(xf[2], xs[2])
+    # one V-cycle launches K1 34 times here; the chain graph holds 2
+    chain = 2 * 34
+    assert sum(op.captured for op in ops) == chain
+    assert sum(op.launches for op in ops) == chain  # the warm-up
+    assert info_f["replays"] == {"anchor": 2 * info_s["steps"],
+                                 "chain": 2 * (info_s["steps"] - 1)}
+    assert info_f["seconds_capture"] > 0.0
+
+
+def test_fused_refinement_raises_where_the_step_cannot_be_captured(dev):
+    step, _, b64, residual = _patch_problem(dev)
+
+    def syncing_step(x, b):
+        if float(bv.norm(b)) == 0.0:  # a host read: illegal under capture
+            return x
+        return step(x, b)
+
+    with pytest.raises(RuntimeError):
+        refinement_solve(syncing_step, residual, b64, chain_k=2, tol=1e-8,
+                         max_steps=8, fused=True)
+    # the card is still usable, and the stepwise route takes that step
+    _, info = refinement_solve(syncing_step, residual, b64, chain_k=2,
+                               tol=1e-8, max_steps=8)
+    assert info["history"][-1] <= 1e-8
+
+
+@pytest.mark.parametrize("cells,p", [((6, 5, 4), 4), ((4, 2, 3), 2),
+                                     ((3, 3, 3), 1), ((5, 6, 7), 3)])
+def test_k1_replayed_from_a_graph_equals_eager(dev, cells, p):
+    tb = _basis(cells, p)
+    op = us.uniform_stencil_operator(tb, 2.0, True, "normal", device=dev)
+    rng = np.random.default_rng(9)
+    shape = (tb.mesh.n_elements, tb.n_local(p))
+    u = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device=dev)
+    graph, y_graph = capture_graph(lambda: op({p: u})[p], dev)
+    assert op.captured == 1 and op.launches == 1  # the capture, the warm-up
+    for _ in range(2):  # a new input in the static buffer each time
+        y_eager = op({p: u})[p]
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y_graph, y_eager)
+        u.copy_(torch.as_tensor(rng.standard_normal(shape), device=dev))
