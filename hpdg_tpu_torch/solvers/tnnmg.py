@@ -12,17 +12,22 @@ subject to lo <= x <= up.  One TNNMG iteration is
 4. projection of the correction into the defect constraints;
 5. an exact quadratic line search, NaN-guarded.
 
-The reference fuses the loop into one ``lax.while_loop`` (one dispatch
-for the remote TPU); here every path is a host loop whose iteration
-reads one number from the device, the correction norm, and keeps the
-other diagnostics on the device until the loop ends.
+Every path is a host loop whose iteration reads one number from the
+device, the correction norm, and keeps the other diagnostics on the
+device until the loop ends.  The reference fuses the loop into one
+``lax.while_loop`` program; its counterpart here,
+:func:`tnnmg_fused_solver`, captures one iteration as a CUDA graph on a
+card and replays it once per iteration.
 
 :func:`solve_obstacle_verified` solves to a host-verified f64 free-dof
 residual: f32 TNNMG settles the contact set, then a primal-dual
 active-set (PDAS) loop solves the truncated systems by f64 iterative
-refinement around f32 parametric V-cycles.  The card has native f64, so
+refinement around f32 parametric V-cycles (:class:`TruncatedRefinement`,
+on a card two replayed graphs per step).  The card has native f64, so
 the anchor is a plain f64 residual on the device where the reference
-needed exact-split pairs.
+needed exact-split pairs.  On CPU tensors the graphs' bodies run
+eagerly; on a card a body that cannot be captured raises, with no
+eager fallback.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from hpdg_tpu_torch.solvers import smoothers as sm
 from hpdg_tpu_torch.solvers.multigrid import (multigrid_solver,
                                               parametric_cycle,
                                               setup_hierarchy)
+from hpdg_tpu_torch.solvers.refine import _sync, capture_graph
 
 
 def projected_block_gs_step(A: bm.BlockSparseMatrix, basis: DGBasis,
@@ -191,25 +197,68 @@ def _tnnmg_loop(one_iter, x, tol, maxiter, stall_window, verbose=False):
     return x, history
 
 
+class FusedTNNMG:
+    """The TNNMG loop over a static iterate, built once and called as
+    ``solve(x0=None) -> (x, history)``.
+
+    :meth:`body` is one iteration on the static ``x``: it returns the
+    correction, damping, energy and truncated count as 0-dim tensors
+    and, after the correction has read the old ``x``, copies the new
+    iterate into it.  On a card it is captured here as a CUDA graph
+    (``graph``, its outputs ``diag``; the reference compiles its loop
+    once) and every iteration replays it; on CPU tensors it runs
+    eagerly.  The host applies the stepwise loop's stopping rules after
+    every iteration, as the reference's ``while_loop`` does after every
+    body, so the iterates are the stepwise route's."""
+
+    def __init__(self, one_iter, b: dict, lo: dict, up: dict, tol: float,
+                 maxiter: int, stall_window: int):
+        self.one_iter, self.lo, self.up = one_iter, lo, up
+        self.tol, self.maxiter, self.stall_window = tol, maxiter, stall_window
+        self.x = {p: torch.clamp(torch.zeros_like(b[p]), lo[p], up[p])
+                  for p in b}
+        device = next(iter(b.values())).device
+        self.graph = self.diag = None
+        if device.type == "cuda":
+            self.graph, self.diag = capture_graph(self.body, device)
+
+    def body(self):
+        x_new, diag = self.one_iter(self.x)
+        for p in self.x:
+            self.x[p].copy_(x_new[p])
+        return diag
+
+    def _step(self, _):
+        if self.graph is None:
+            return self.x, self.body()
+        self.graph.replay()
+        # the next replay rewrites the outputs: the history keeps copies
+        return self.x, tuple(v.clone() for v in self.diag)
+
+    def __call__(self, x0: dict | None = None):
+        for p in self.x:
+            x = torch.zeros_like(self.x[p]) if x0 is None else x0[p]
+            self.x[p].copy_(torch.clamp(x, self.lo[p], self.up[p]))
+        x, history = _tnnmg_loop(self._step, self.x, self.tol, self.maxiter,
+                                 self.stall_window)
+        return {p: v.clone() for p, v in x.items()}, history
+
+
 def tnnmg_fused_solver(A: bm.BlockSparseMatrix, b: dict, basis: DGBasis,
                        lo: dict, up: dict, mg_step=None, tol: float = 1e-9,
                        maxiter: int = 100, pre_sweeps: int = 1,
-                       active_eps: float = 1e-13, stall_window: int = 0):
+                       active_eps: float = 1e-13,
+                       stall_window: int = 0) -> FusedTNNMG:
     """Build once, solve many: the TNNMG loop as a reusable callable
-    ``solve(x0=None) -> (x, history)`` (the multigrid set-up and the
-    smoother's tables are built here, once)."""
+    ``solve(x0=None) -> (x, history)`` (the multigrid set-up, the
+    smoother's tables and, on a card, the iteration's CUDA graph are
+    built here, once: :class:`FusedTNNMG`)."""
     if mg_step is None:
         mg_step, _ = multigrid_solver(basis, A,
                                       dtype=next(iter(b.values())).dtype)
     one_iter = _tnnmg_one_iter(A, b, basis, lo, up, mg_step, pre_sweeps,
                                active_eps)
-
-    def solve(x0: dict | None = None):
-        x = bv.zeros_like(b) if x0 is None else x0
-        x = {p: torch.clamp(x[p], lo[p], up[p]) for p in x}
-        return _tnnmg_loop(one_iter, x, tol, maxiter, stall_window)
-
-    return solve
+    return FusedTNNMG(one_iter, b, lo, up, tol, maxiter, stall_window)
 
 
 def solve_tnnmg(A: bm.BlockSparseMatrix, b: dict, basis: DGBasis,
@@ -312,9 +361,116 @@ def complementarity(r64: dict, x64: dict, lo64: dict, free: dict,
     return comp
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+class TruncatedRefinement:
+    """The inner solve of a PDAS outer iteration, the counterpart of the
+    reference's ``_truncated_refine_prog``: the truncated system ``F A F
+    y = b_tr`` by f64 refinement from the last outer's ``y``.  Per step
+    the f64 anchor ``r = F (b_tr - A64 (F y)) - (I - F) y`` and its norm
+    ``nr`` (one read: the step's barrier), a stop at ``nr <= tol_cut``,
+    else the chain: ``chain_k`` f32 parametric cycles from zero on
+    ``r / nr``, then ``y += nr c``.  Built once per solve and reused by
+    every outer and every run.
+
+    ``fused=True`` keeps static buffers: the level matrices' values and
+    their inverse diagonal blocks, ``F`` in f64, ``b_tr``, ``y`` and the
+    anchor's ``r`` and ``nr``.  On a card the anchor and the chain are
+    captured here as two CUDA graphs over them (one memory pool) and
+    replayed; the host replays the chain only while the anchor misses,
+    where the reference's ``lax.cond`` skips it.  Each outer renews the
+    truncated hierarchy eagerly, as the reference does outside its
+    program, and copies it into the buffers: ``MultigridData.renew``
+    rebinds the level matrices to new tensors, which a graph captured on
+    the old ones would never read.  On CPU tensors the same bodies run
+    eagerly on the buffers.  ``fused=False`` runs them on the renewed
+    hierarchy itself, the route the graphs are held against.
+    """
+
+    def __init__(self, A64: bm.BlockSparseMatrix, A32: bm.BlockSparseMatrix,
+                 data, cycle, b64: dict, *, chain_k: int = 8,
+                 max_steps: int = 12, fused: bool = True):
+        self.A64, self.A32, self.data, self.cycle = A64, A32, data, cycle
+        self.chain_k, self.max_steps, self.fused = chain_k, max_steps, fused
+        self.keys = sorted(b64)
+        self.y = {k: torch.zeros_like(b64[k]) for k in self.keys}
+        self.mats = list(data.matrices)
+        self.dinvs = [sm.inverse_diagonal_blocks(M) for M in self.mats]
+        self.ff = {k: torch.ones_like(b64[k]) for k in self.keys}
+        # the capture's warm-up solves the untruncated system for b64
+        self.b_tr = {k: b64[k].clone() for k in self.keys}
+        self.graphs = None
+        if not fused:
+            return
+        self.mats = [bm.BlockSparseMatrix(
+            M.pattern, M.dim, {key: v.clone() for key, v in M.values.items()},
+            M.block_shape) for M in self.mats]
+        device = b64[self.keys[0]].device
+        if device.type == "cuda":
+            g_anchor, _ = capture_graph(self._anchor, device)
+            g_anchor.replay()  # the chain's warm-up reads a real residual
+            g_chain, _ = capture_graph(self._chain, device,
+                                       pool=g_anchor.pool())
+            self.graphs = (g_anchor, g_chain)
+            self.reset()  # the warm-ups moved y
+
+    def _anchor(self):
+        ff, y = self.ff, self.y
+        Ay = bm.matvec(self.A64, {k: ff[k] * y[k] for k in self.keys})
+        self.r = {k: ff[k] * (self.b_tr[k] - Ay[k]) - (1.0 - ff[k]) * y[k]
+                  for k in self.keys}
+        self.nr = bv.norm(self.r)
+
+    def _chain(self):
+        inv = 1.0 / self.nr
+        rhs = {k: (self.r[k] * inv).to(torch.float32) for k in self.keys}
+        c = bv.zeros_like(rhs)
+        for _ in range(self.chain_k):
+            c = self.cycle(self.mats, self.dinvs, c, rhs)
+        for k in self.keys:
+            self.y[k].add_(self.nr * c[k].to(torch.float64))
+
+    def reset(self):
+        """Zero the warm start (a new solve)."""
+        for v in self.y.values():
+            v.zero_()
+
+    def load(self, free: dict, b_tr: dict):
+        """Renew the truncated hierarchy for the free mask ``free`` and
+        take ``b_tr``: into the static buffers (``fused``) or as they
+        are."""
+        data = self.data
+        data.renew(truncated_matrix(self.A32, free), dtype=torch.float32)
+        dinvs = [sm.inverse_diagonal_blocks(M) for M in data.matrices]
+        ff = {k: free[k].to(torch.float64) for k in self.keys}
+        if not self.fused:
+            self.mats, self.dinvs = list(data.matrices), dinvs
+            self.ff, self.b_tr = ff, b_tr
+            return
+        for S, M, Ds, D in zip(self.mats, data.matrices, self.dinvs, dinvs):
+            for key, v in M.values.items():
+                S.values[key].copy_(v)
+            for p, d in D.items():
+                Ds[p].copy_(d)
+        for k in self.keys:
+            self.ff[k].copy_(ff[k])
+            self.b_tr[k].copy_(b_tr[k])
+
+    def __call__(self, free: dict, b_tr: dict, tol_cut: float) -> list:
+        """One outer's solve from the current ``y``; returns the anchored
+        residual norms, one per step.  The answer stays in ``self.y``,
+        the next outer's warm start."""
+        self.load(free, b_tr)
+        anchor, chain = self._anchor, self._chain
+        if self.graphs is not None:
+            anchor, chain = (g.replay for g in self.graphs)
+        hist = []
+        while len(hist) < self.max_steps:
+            anchor()
+            nr = float(self.nr)  # the step's one device -> host read
+            hist.append(nr)
+            if nr <= tol_cut:
+                break
+            chain()
+        return hist
 
 
 def solve_obstacle_verified(A64, b64: dict, basis: DGBasis, lo, up,
@@ -337,8 +493,12 @@ def solve_obstacle_verified(A64, b64: dict, basis: DGBasis, lo, up,
        x_act)`` is solved by f64 refinement (per step: the f64 residual
        ``r = F (b_tr - A (F y)) - (I - F) y``, one read of its norm, stop
        at ``tol ||b||``, else ``chain_k`` f32 parametric cycles from zero
-       on the renewed truncated hierarchy), warm-started from the last
-       outer's solution; the loop ends when the active set is stationary.
+       on the renewed truncated hierarchy: :class:`TruncatedRefinement`),
+       warm-started from the last outer's solution; the loop ends when
+       the active set is stationary.
+
+    On a card both phases replay CUDA graphs captured once per call: one
+    TNNMG iteration, and the refinement's anchor and chain.
 
     The returned ``info`` holds ``stationary`` (whether the active set
     settled within ``max_outer``) and host numpy f64 measurements:
@@ -346,8 +506,11 @@ def solve_obstacle_verified(A64, b64: dict, basis: DGBasis, lo, up,
     ``complementarity``; ``verified`` iff feasible and the free-dof
     residual met ``tol``.  ``n_runs`` repeats the whole solve (phase 1
     from zero each time) and returns the best run; ``info["runs"]``
-    holds each run's record.  ``dedup`` selected the exact-split
-    anchor's chunk store in the reference and has no effect here.
+    holds each run's record.  ``seconds_capture`` is the build of the
+    two phases' programs (their tables, warm-ups and captures), outside
+    every run's ``seconds``, as the reference's compile and warm-up are.
+    ``dedup`` selected the exact-split anchor's chunk store in the
+    reference and has no effect here.
     """
     f32, f64 = torch.float32, torch.float64
     keys = sorted(b64)
@@ -373,40 +536,25 @@ def solve_obstacle_verified(A64, b64: dict, basis: DGBasis, lo, up,
 
     # phase 1: f32 TNNMG to the correction floor
     mg_step, _ = multigrid_solver(basis, A32, meshes=meshes, dtype=f32)
+    t0 = time.perf_counter()
     solver1 = tnnmg_fused_solver(A32, b32, basis, lo32, up32,
                                  mg_step=mg_step, tol=1e-6 * nb,
                                  maxiter=maxiter, pre_sweeps=pre_sweeps,
                                  stall_window=stall_window)
+    t_capture = time.perf_counter() - t0
     # phase 2 machinery, built once: the hierarchy of the truncated
-    # matrix (renewed per outer) and the parametric cycle
+    # matrix (renewed per outer), the parametric cycle and the inner solve
     free_all = {k: torch.ones(b32[k].shape, dtype=torch.bool, device=device)
                 for k in keys}
     data = setup_hierarchy(basis, truncated_matrix(A32, free_all),
                            meshes=meshes, dtype=f32)
     cycle = parametric_cycle(data, pre_steps=mg_pre_steps,
                              post_steps=mg_post_steps, dtype=f32)
+    t0 = time.perf_counter()
+    refine = TruncatedRefinement(A64, A32, data, cycle, b64,
+                                 chain_k=chain_k, max_steps=max_steps)
+    t_capture += time.perf_counter() - t0
     tol_cut = tol * nb
-
-    def refine(free, b_tr, y):
-        """The truncated system's f64 refinement from ``y``; returns
-        (y, anchored residual norms)."""
-        ff = {k: free[k].to(f64) for k in keys}
-        dinvs = [sm.inverse_diagonal_blocks(M) for M in data.matrices]
-        hist = []
-        while len(hist) < max_steps:
-            Ay = bm.matvec(A64, {k: ff[k] * y[k] for k in keys})
-            r = {k: ff[k] * (b_tr[k] - Ay[k]) - (1.0 - ff[k]) * y[k]
-                 for k in keys}
-            nr = float(bv.norm(r))  # the step's one sync
-            hist.append(nr)
-            if nr <= tol_cut:
-                break
-            rhs = {k: (r[k] / nr).to(f32) for k in keys}
-            c = bv.zeros_like(rhs)
-            for _ in range(chain_k):
-                c = cycle(data.matrices, dinvs, c, rhs)
-            y = {k: y[k] + nr * c[k].to(f64) for k in keys}
-        return y, hist
 
     def one_solve():
         _sync(device)
@@ -418,7 +566,7 @@ def solve_obstacle_verified(A64, b64: dict, basis: DGBasis, lo, up,
         free = None
         stationary = False
         outer_hist = []
-        y_warm = {k: torch.zeros_like(b64[k]) for k in keys}
+        refine.reset()
         for outer in range(max_outer):
             Ax = bm.matvec(A64, x64)
             lam = {k: Ax[k] - b64[k] for k in keys}  # lambda = A x - b
@@ -440,12 +588,10 @@ def solve_obstacle_verified(A64, b64: dict, basis: DGBasis, lo, up,
             Axa = bm.matvec(A64, x_act)
             b_tr = {k: torch.where(free[k], b64[k] - Axa[k], 0.0)
                     for k in keys}
-            data.renew(truncated_matrix(A32, free), dtype=f32)
             # warm start: near stationarity the active set changes by a
             # handful of dofs per outer, so the last solution is close
-            y, h = refine(free, b_tr, y_warm)
-            y_warm = y
-            x64 = {k: x_act[k] + torch.where(free[k], y[k], 0.0)
+            h = refine(free, b_tr, tol_cut)
+            x64 = {k: x_act[k] + torch.where(free[k], refine.y[k], 0.0)
                    for k in keys}
             ntr = int(sum(int((~free[k]).sum()) for k in keys))
             outer_hist.append({"steps": len(h), "truncated": ntr,
@@ -496,5 +642,5 @@ def solve_obstacle_verified(A64, b64: dict, basis: DGBasis, lo, up,
                 info["verified"] == best["verified"]
                 and info["seconds"] < best["seconds"]):
             best_x, best = x64, info
-    best["runs"] = runs
+    best.update(runs=runs, seconds_capture=t_capture)
     return best_x, best

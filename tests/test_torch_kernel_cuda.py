@@ -13,7 +13,12 @@ of levels K1 cannot take when asked for the kernel.  The fused
 refinement solve (two captured CUDA graphs per step) against the
 stepwise one, bit for bit (nothing on that path sums with atomics); a
 step that syncs with the host makes it raise; K1 replayed from a graph
-equals K1 eager bit for bit.
+equals K1 eager bit for bit.  Config 5's two programs, the fused TNNMG
+(one captured iteration) and the PDAS inner solve (anchor and chain
+graphs over static buffers), against their eager routes to the bounds
+of two f32 routes that sum in another order; an iteration that syncs
+with the host makes the fused TNNMG raise; the verified obstacle solve
+on the card verifies.
 """
 
 import numpy as np
@@ -240,3 +245,146 @@ def test_k1_replayed_from_a_graph_equals_eager(dev, cells, p):
         torch.cuda.synchronize()
         assert torch.equal(y_graph, y_eager)
         u.copy_(torch.as_tensor(rng.standard_normal(shape), device=dev))
+
+
+# ---- config 5's two programs: the fused TNNMG and the PDAS inner solve --
+
+def _obstacle(dev, n, p):
+    """Config 5's membrane pushed into a lower obstacle at -0.2 on n^2
+    at degree p: (basis, A64, b64, lo, up, f32 copies of A, b, lo, up)."""
+    from hpdg_tpu_torch.blocks import api
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    m = tmesh.structured((n, n), lower=(-1, -1), upper=(1, 1))
+    basis = DGBasis(m, np.full(m.n_elements, p))
+    A64 = api.laplace(basis, penalty=2.0, dirichlet=True, device=dev)
+    b64 = api.l2_functional(basis, lambda x: -8.0 + 0.0 * x[..., 0],
+                            device=dev)
+    lo, up = api.constant_bounds(basis, lower=-0.2, device=dev)
+    f32 = torch.float32
+    A32 = bm.BlockSparseMatrix(A64.pattern, A64.dim,
+                               {k: v.to(f32) for k, v in A64.values.items()},
+                               A64.block_shape)
+    as32 = lambda d: {k: v.to(f32) for k, v in d.items()}  # noqa: E731
+    return basis, A64, b64, lo, up, (A32, as32(b64), basis, as32(lo),
+                                     as32(up))
+
+
+def _gap(want, got):
+    err = max(float((got[k].double() - want[k].double()).abs().max())
+              for k in want)
+    return err, max(float(v.abs().max()) for v in want.values())
+
+
+def test_fused_tnnmg_on_card_matches_eager(dev):
+    """One captured TNNMG iteration replayed per iteration against the
+    eager loop, f32 at 16^2 p=2, to bounds for two f32 routes that sum
+    in another order (``index_add_`` atomics): iterations within 2,
+    energies within 1e-6 (1 + |e|), x within 1e-3 of max|x|; one replay
+    from a fixed x against one eager iteration within 1e-5."""
+    from hpdg_tpu_torch.solvers.multigrid import multigrid_solver
+    from hpdg_tpu_torch.solvers.tnnmg import (_tnnmg_one_iter, solve_tnnmg,
+                                              tnnmg_fused_solver)
+    *_, args = _obstacle(dev, 16, 2)
+    mg_step, _ = multigrid_solver(args[2], args[0], dtype=torch.float32)
+    nb = float(bv.norm(args[1]))
+    kw = dict(mg_step=mg_step, tol=1e-6 * nb, maxiter=40, stall_window=3)
+    xs, hs = solve_tnnmg(*args, **kw)
+    solver = tnnmg_fused_solver(*args, **kw)
+    assert solver.graph is not None
+    xf, hf = solver()
+    assert abs(hf["iterations"] - hs["iterations"]) <= 2
+    assert max(hf["truncated"]) > 0
+    es, ef = hs["energy"][-1], hf["energy"][-1]
+    assert abs(es - ef) <= 1e-6 * (1.0 + abs(es))
+    err, scale = _gap(xs, xf)
+    assert err <= 1e-3 * scale
+    x_fix, _ = solve_tnnmg(*args, mg_step=mg_step, tol=0.0, maxiter=2)
+    x_e, diag_e = _tnnmg_one_iter(*args, mg_step, 1, 1e-13)(x_fix)
+    for k in solver.x:
+        solver.x[k].copy_(x_fix[k])
+    solver.graph.replay()
+    err, scale = _gap(x_e, solver.x)
+    assert err <= 1e-5 * scale
+    for g, e in zip(solver.diag[:3], diag_e[:3]):
+        assert abs(float(g) - float(e)) <= 1e-5 * abs(float(e))
+
+
+def test_pdas_inner_solve_graphs_on_card_match_eager(dev):
+    """The PDAS inner solve (``TruncatedRefinement``) by its anchor and
+    chain graphs against its eager route on one truncated system: both
+    reach 1e-8 ||b||, steps within 1, y within 1e-6 of max|y|; one chain
+    replay against the eager chain from the same anchor within 1e-5;
+    a second system renews the static buffers for the same graphs."""
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.solvers.multigrid import (parametric_cycle,
+                                                  setup_hierarchy)
+    from hpdg_tpu_torch.solvers.tnnmg import (TruncatedRefinement,
+                                              solve_tnnmg, truncated_matrix)
+    basis, A64, b64, lo, up, args = _obstacle(dev, 16, 2)
+    A32 = args[0]
+    x, _ = solve_tnnmg(*args, tol=0.0, maxiter=20)
+    nb = float(bv.norm(b64))
+    routes = []
+    for fused in (False, True):
+        free = {k: torch.ones_like(v, dtype=torch.bool) for k, v in x.items()}
+        data = setup_hierarchy(basis, truncated_matrix(A32, free),
+                               dtype=torch.float32)
+        routes.append(TruncatedRefinement(
+            A64, A32, data, parametric_cycle(data, dtype=torch.float32), b64,
+            chain_k=4, fused=fused))
+    eager, graph = routes
+    assert eager.graphs is None and graph.graphs is not None
+    steps = []
+    for eps in (1e-3, 1e-6):  # two active sets, the second warm-started
+        free = {k: v.double() > lo[k] + eps for k, v in x.items()}
+        Axa = bm.matvec(A64, {k: torch.where(free[k], 0.0, lo[k])
+                              for k in free})
+        b_tr = {k: torch.where(free[k], b64[k] - Axa[k], 0.0) for k in free}
+        he, hg = (r(free, b_tr, 1e-8 * nb) for r in routes)
+        assert he[-1] <= 1e-8 * nb and hg[-1] <= 1e-8 * nb
+        assert abs(len(he) - len(hg)) <= 1
+        steps.append(len(hg))
+        err, scale = _gap(eager.y, graph.y)
+        assert err <= 1e-6 * scale
+    assert steps[0] >= 2  # the chain graph ran
+    g_anchor, g_chain = graph.graphs
+    graph.reset()
+    g_anchor.replay()
+    g_chain.replay()
+    y_graph = {k: v.clone() for k, v in graph.y.items()}
+    graph.reset()
+    graph._chain()
+    err, scale = _gap(graph.y, y_graph)
+    assert err <= 1e-5 * scale
+
+
+def test_fused_tnnmg_raises_where_the_iteration_cannot_be_captured(dev):
+    from hpdg_tpu_torch.solvers.multigrid import multigrid_solver
+    from hpdg_tpu_torch.solvers.tnnmg import solve_tnnmg, tnnmg_fused_solver
+    *_, args = _obstacle(dev, 4, 2)
+    mg_step, _ = multigrid_solver(args[2], args[0], dtype=torch.float32)
+
+    def syncing_step(x, b):
+        if float(bv.norm(b)) == 0.0:  # a host read: illegal under capture
+            return x
+        return mg_step(x, b)
+
+    with pytest.raises(RuntimeError):
+        tnnmg_fused_solver(*args, mg_step=syncing_step, tol=1e-6,
+                           maxiter=40)
+    # the card is still usable, and the eager loop takes that step
+    _, hist = solve_tnnmg(*args, mg_step=syncing_step, tol=1e-6, maxiter=40)
+    assert hist["iterations"] > 1
+
+
+def test_solve_obstacle_verified_on_card_verifies(dev):
+    from hpdg_tpu_torch.solvers.tnnmg import solve_obstacle_verified
+    basis, A64, b64, lo, up, _ = _obstacle(dev, 32, 3)
+    x, info = solve_obstacle_verified(A64, b64, basis, lo, up, tol=1e-8,
+                                      max_outer=30, n_runs=2)
+    assert info["verified"] and info["free_residual"] <= 1e-8
+    assert info["feasible"] and info["complementarity"] <= 1e-8
+    assert info["truncated"] > 0 and info["seconds_capture"] > 0.0
+    for run in info["runs"]:
+        assert run["verified"] and run["truncated"] > 0
+    assert x[3].shape == (1024, 16)
