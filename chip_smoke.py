@@ -55,6 +55,16 @@ Phases (any failure ends the run with a nonzero exit code):
    block-Jacobi PCG in f64 on the card (sum-factorized matvec, diagonal
    blocks from ``sipg_diagonal_blocks``, tol 1e-8), its relative
    residual recomputed by the f64 dedup SpMV and asserted <= 1e-8;
+   pcg runs as replayed CUDA graphs of 8-iteration blocks
+   (``solvers.graphs``): its captures, replays and ms per replayed
+   iteration (``graph_route``), then a prefix by both routes
+   (``loop_routes``: x within 1e-9, equal iterations, ms per iteration
+   eager and replayed, and one block eager and one replay of the same
+   loop under the profiler: launches per iteration, equal on both
+   routes, device ms and busy share).  Phases 13b-c, 14d, 15a-e and
+   16a-d print the same for their drivers (the profiler also for 16b's
+   pmg-PCG); 13b's refinement takes its fused route, whose chain graph
+   records the step's pcg with all its iterations;
 8. BASELINE config 4 as ``bench.py:698-772`` runs it: 3D elasticity on
    24^3 at p=2 (1,119,744 dofs, mu = lam = 1, penalty 4, Dirichlet),
    assembled on the card in f64; the assembled hp-multigrid on the f32
@@ -862,6 +872,171 @@ def profile_apply(fn, reps: int = 5):
              for a in ops[:6]])
 
 
+# ---------------------------------------------------------------------------
+# the reference's device loops as replayed CUDA graphs (solvers.graphs)
+# ---------------------------------------------------------------------------
+
+def _flat_card(x) -> torch.Tensor:
+    """A driver's iterate (a tensor or a bucket dict) as one f64 vector."""
+    if isinstance(x, dict):
+        return torch.cat([x[k].reshape(-1).double() for k in sorted(x)])
+    return x.reshape(-1).double()
+
+
+def graph_route(tag: str, fn, per_iteration: bool = True):
+    """Runs ``fn()``, a phase's own call of a driver (its graph route),
+    with the loop counts set to 0 just before it; prints the graphs
+    captured, their warm-up and capture seconds, the replays, and (where
+    ``fn`` is one loop: ``per_iteration``) the ms per replayed iteration
+    (host clock: the call less its warm-ups and captures, over the
+    iterations replayed); fails where no loop was replayed.  Returns
+    ``fn()``'s result."""
+    from hpdg_tpu_torch.solvers import graphs
+    torch.cuda.synchronize()
+    graphs.reset_counts()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    c = dict(graphs.counts)
+    ms = 1e3 * (secs - c["capture_seconds"]) / max(c["iterations"], 1)
+    print(f"{tag} graph route: {c['captures']} capture(s), warm-up and "
+          f"capture {c['capture_seconds']:.3f} s, {c['replays']} replays, "
+          f"{c['iterations']} iterations replayed"
+          + (f", {ms:.3f} ms per replayed iteration" if per_iteration
+             else "") + f"; the call {secs:.3f} s", flush=True)
+    if not c["replays"]:
+        raise AssertionError(f"{tag}: no loop was replayed")
+    return out
+
+
+def _made_loops():
+    """A context manager that lists every ``DeviceLoop`` created inside
+    it (the driver's own loops, kept alive for a profiler window)."""
+    import contextlib
+    from hpdg_tpu_torch.solvers import graphs
+
+    @contextlib.contextmanager
+    def recording():
+        made, init = [], graphs.DeviceLoop.__init__
+
+        def record(self, *args, **kwargs):
+            init(self, *args, **kwargs)
+            made.append(self)
+
+        graphs.DeviceLoop.__init__ = record
+        try:
+            yield made
+        finally:
+            graphs.DeviceLoop.__init__ = init
+
+    return recording()
+
+
+def loop_routes(tag: str, call, counts: tuple, bound: float,
+                profile: bool = False):
+    """A driver on a bounded prefix by both routes.  ``call(m)`` runs the
+    driver for ``m`` iterations (its count or its ``maxiter``) and
+    returns ``(x, iterations run)``.  The eager route runs the same
+    bodies launch by launch (``graphs.eager_loops``), the graph route
+    captures and replays them.  Each route runs at ``n1`` and at ``n2``
+    (``counts``); the difference of the two calls, each less its
+    warm-ups and captures, is ``n2 - n1`` iterations, eager or replayed,
+    without the driver's set-up: it gives the ms per iteration (host
+    clock).  Asserts equal iterations at ``n2``, the graph route's x
+    within ``bound`` of max|x| of the eager route's, and replays on the
+    graph route.  With ``profile``, the driver's own loop of the graph
+    route's last call runs one more iteration eagerly and one replay of
+    its block, each in a profiler window with idle edges (``traced``):
+    launches and device ms per iteration and the busy share of both
+    routes on the same static buffers, and the launches per iteration
+    must be equal."""
+    import contextlib
+    from hpdg_tpu_torch.solvers import graphs
+    n1, n2 = counts
+    res, loop = {}, None
+    for route in ("eager", "graph"):
+        ctx = (graphs.eager_loops() if route == "eager"
+               else contextlib.nullcontext())
+        runs = {}
+        with ctx:
+            for m in (n1, n2):
+                graphs.reset_counts()
+                with _made_loops() as made:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    x, k = call(m)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t
+                c = dict(graphs.counts)
+                runs[m] = (wall - c["capture_seconds"], c["replays"],
+                           _flat_card(x).clone(), k, made)
+        (w1, _, _, _, _), (w2, replays, x, k, made) = runs[n1], runs[n2]
+        res[route] = dict(x=x, k=k, ms=1e3 * (w2 - w1) / (n2 - n1),
+                          replays=replays)
+        if route == "graph":
+            loop = next((lp for lp in reversed(made)
+                         if lp.graph is not None), None)
+    e, g = res["eager"], res["graph"]
+    gap = float((e["x"] - g["x"]).abs().max()) / max(
+        float(e["x"].abs().max()), 1e-300)
+    line = (f"{tag} eager vs graph at {n2} iterations: iterations "
+            f"{e['k']} / {g['k']}, x gap {gap:.3e} of max|x| (bound "
+            f"{bound:.0e}); ms per iteration (calls at {n1} and {n2}, less "
+            f"their captures) eager {e['ms']:.3f}, replayed {g['ms']:.3f} "
+            f"({g['replays']} replays at {n2})")
+    if e["k"] != g["k"] or not gap <= bound or not g["replays"]:
+        print(line, flush=True)
+        raise AssertionError(f"{tag}: the graph route differs from the "
+                             f"eager one ({e['k']} / {g['k']} iterations, "
+                             f"gap {gap:.3e}, {g['replays']} replays)")
+    if profile:
+        if loop is None:
+            raise AssertionError(f"{tag}: no captured loop to profile")
+
+        def one_iteration():
+            block, loop.block = loop.block, 1
+            try:
+                loop._run_block()
+            finally:
+                loop.block = block
+
+        for route, fn, its in (("eager", one_iteration, 1),
+                               ("graph", loop.graph.replay, loop.block)):
+            # the warm-up step runs the same work (a window after a
+            # warm-up of one small op lost kernels at its edge)
+            kernels, wall = traced(fn, fn)
+            if not kernels:
+                raise AssertionError(f"{tag}: the profiler saw no kernels")
+            dev_ms = sum(ms for _, ms in kernels)
+            res[route].update(
+                launches=len(kernels) / its, device_ms=dev_ms / its,
+                wall_ms=1e3 * wall / its, busy=dev_ms / (1e3 * wall),
+                names=collections.Counter(name for name, _ in kernels))
+            if route == "eager":  # per iteration, like the replay's
+                res[route]["names"] = collections.Counter(
+                    {k: v * loop.block
+                     for k, v in res[route]["names"].items()})
+        line += (f"; one eager iteration and one replay of {loop.block} "
+                 f"under the profiler: "
+                 f"launches per iteration eager {e['launches']:.2f}, "
+                 f"replayed {g['launches']:.2f}; device ms per iteration "
+                 f"eager {e['device_ms']:.4f}, replayed {g['device_ms']:.4f};"
+                 f" wall ms per iteration eager {e['wall_ms']:.3f}, replayed "
+                 f"{g['wall_ms']:.3f}; busy share eager {e['busy']:.3f}, "
+                 f"replayed {g['busy']:.3f}")
+    print(line, flush=True)
+    if profile and e["launches"] != g["launches"]:
+        diff = e["names"].copy()
+        diff.subtract(g["names"])
+        print(f"{tag} launches that differ (eager minus replayed, one "
+              f"block's worth): {[(k, v) for k, v in diff.items() if v][:12]}",
+              flush=True)
+        raise AssertionError(f"{tag}: launches per iteration differ, eager "
+                             f"{e['launches']} replayed {g['launches']}")
+    return res
+
+
 def print_profile(tag: str, prof, unit: str = "apply"):
     if prof is None:
         print(f"{tag} profile: not measured (no device events)", flush=True)
@@ -1004,8 +1179,8 @@ def hp_solve(dev, cells=(8, 8, 8)):
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     t0 = time.perf_counter()
-    x, info = pcg(op, b, precond=M, tol=1e-8, maxiter=5000)
-    torch.cuda.synchronize()
+    x, info = graph_route("7 pcg", lambda: pcg(op, b, precond=M, tol=1e-8,
+                                               maxiter=5000))
     t_solve = time.perf_counter() - t0
     k = info["iterations"]
     hist = info["residuals"]
@@ -1030,6 +1205,11 @@ def hp_solve(dev, cells=(8, 8, 8)):
     if not (k < 5000 and rel <= 1e-8):
         raise AssertionError(f"hp solve not verified: {k} iterations, "
                              f"rel {rel:.3e}")
+    # the same pcg on a prefix of 16 iterations by both routes; f64 sums
+    # whose index_add_ atomics collide come in another order per run
+    loop_routes("7 pcg", lambda m: (lambda x, i: (x, i["iterations"]))(
+        *pcg(op, b, precond=M, tol=1e-8, maxiter=m)), (8, 16), 1e-9,
+        profile=True)
 
 
 def host_matvec(pattern, vals: dict, x: dict) -> dict:
@@ -2109,10 +2289,31 @@ def geometry_elasticity(dev, n_el: int = 24, box: dict | None = None):
                          {k: v.numpy() for k, v in x.items()})
         return {k: torch.from_numpy(b_host[k] - Ax[k]) for k in keys}
 
+    # the fused route: the chain graph records the step's pcg with all
+    # its cg_its iterations (no host read under a caller's capture); the
+    # chain's warm-up calls pcg eagerly, which captures a graph of its own
+    from hpdg_tpu_torch.solvers import graphs
+    graphs.reset_counts()
     x64, res = refinement_solve(
         step, lambda x: bv.sub(b64, bm.matvec(A64, x)), b64, chain_k=1,
-        tol=1e-8, max_steps=12, host_residual=host_residual)
+        tol=1e-8, max_steps=12, host_residual=host_residual, fused=True)
+    print(f"geometry 13b fused refinement: capture_s="
+          f"{res['seconds_capture']:.3f} replays={res['replays']} "
+          f"({cg_its} pcg iterations in each chain replay); pcg's own "
+          f"graphs (the chain's warm-up): {graphs.counts['captures']} "
+          f"capture(s), {graphs.counts['replays']} replays", flush=True)
+    if dev.type == "cuda" and res["replays"]["chain"] != res["steps"] - 1:
+        raise AssertionError("geometry 13b: the chain graph was not "
+                             "replayed per step")
     b32 = {k: v.float() for k, v in b64.items()}
+    r1 = {k: v / float(bv.norm(b32)) for k, v in b32.items()}
+    # one step's pcg (from zero, f32) on a prefix of 16 iterations (two
+    # blocks) by both routes: f32 sums with colliding index_add_ atomics
+    loop_routes("13b pcg step", lambda m: (lambda x, i: (
+        x, i["iterations"]))(*pcg(lambda v: bm.matvec(A32, v), r1,
+                                  precond=lambda z: cycle(bv.zeros_like(z),
+                                                          z),
+                                  tol=0.0, maxiter=m)), (8, 16), 1e-4)
     x0 = bv.zeros_like(b32)
     t_cycle = float(np.median(event_times(lambda: cycle(x0, b32), 3)))
     print(f"geometry 13b hierarchy=[{levels}] smoothers={data.smoothers} "
@@ -2209,11 +2410,13 @@ def geometry_import(dev, nb: int = 16, layers: int = 16, p: int = 2):
     b = l2_functional(basis, lambda x: torch.ones_like(x[..., 0]),
                       device=dev)
     t0 = time.perf_counter()
-    x, info = pcg(lambda z: bm.matvec(A, z), b,
-                  precond=sm.block_jacobi_preconditioner(A), tol=1e-9,
-                  maxiter=4000)
-    torch.cuda.synchronize()
+    M = sm.block_jacobi_preconditioner(A)
+    x, info = graph_route("geometry 13c pcg", lambda: pcg(
+        lambda z: bm.matvec(A, z), b, precond=M, tol=1e-9, maxiter=4000))
     t_solve = time.perf_counter() - t0
+    loop_routes("geometry 13c pcg", lambda m: (lambda x, i: (
+        x, i["iterations"]))(*pcg(lambda z: bm.matvec(A, z), b, precond=M,
+                                  tol=1e-9, maxiter=m)), (8, 16), 1e-9)
     vals_host = {k: t.cpu().numpy() for k, t in A.values.items()}
     Ax = host_matvec(A.pattern, vals_host,
                      {k: t.cpu().numpy() for k, t in x.items()})
@@ -2574,7 +2777,9 @@ def presets_and_tools(dev, n: int = 32, p: int = 2, steps: int = 5):
             # the correction tolerance relative to the state's energy
             # norm: the state decays, an absolute 1e-10 would not
             unorm = float(torch.sqrt(bv.dot(u, bm.matvec(prob.S, u))))
-            u, info = prob.advance(u, tol=1e-12 * unorm, maxiter=400)
+            u, info = graph_route(f"14d step {k} loop_solve",
+                                  lambda: prob.advance(  # noqa: B023
+                                      u, tol=1e-12 * unorm, maxiter=400))
             t_step = timer.elapsed(u)
             rhs = host_matvec(prob.M.pattern, M_h, u_old)
             rel = _host_rel(prob.S.pattern, S_h, _to_host(u), rhs)
@@ -2590,6 +2795,10 @@ def presets_and_tools(dev, n: int = 32, p: int = 2, steps: int = 5):
                 raise AssertionError(f"14d step {k}: residual {rel:.3e} "
                                      f"or energy {e:.3e} > {e0:.3e}")
             e0 = e
+        # the step's loop_solve on a prefix of 3 V-cycles by both routes
+        loop_routes("14d loop_solve", lambda m: (lambda x, i: (
+            x, i["iterations"]))(*prob.advance(u, tol=0.0, maxiter=m)),
+            (1, 3), 1e-9)
         got = mgr.restore(device=dev)
         if mgr.steps() != list(range(steps - 3, steps)) or not all(
                 torch.equal(got[q], u[q]) for q in u):
@@ -2719,7 +2928,9 @@ def sharded_poisson(dev, cells=(32, 32, 32), degs=(2, 3, 4), tag="15a"):
         while True:
             torch.cuda.synchronize(dev)
             t = time.perf_counter()
-            x, rel = hp.hp_pmg_pcg_solve(pmg, bs, iters=iters)
+            x, rel = graph_route(f"{tag} {label} hp_pmg_pcg_solve",
+                                 lambda: hp.hp_pmg_pcg_solve(  # noqa: B023
+                                     pmg, bs, iters=iters))
             rel = float(rel)
             t_solve = time.perf_counter() - t
             r = bv.sub(b, ser64(fine.gather_global(x, basis)))
@@ -2734,6 +2945,10 @@ def sharded_poisson(dev, cells=(32, 32, 32), degs=(2, 3, 4), tag="15a"):
             iters = int(min(200, max(2 * iters, np.ceil(need))))
         if not verified <= 1e-8:
             raise AssertionError(f"{tag} {label}: verified {verified:.3e}")
+        if label == "slabs":  # the blocks run the same driver
+            loop_routes(f"{tag} {label} hp_pmg_pcg_solve", lambda m: (
+                hp.hp_pmg_pcg_solve(pmg, bs, iters=m)[0], m),  # noqa: B023
+                (1, 2), 1e-9)
         print(f"{tag} {label}: peak_mem_GB={_peak_gb(dev):.2f}", flush=True)
         if label == "slabs":
             keep = dict(fine=fine, xs=xs, bs=bs, degrees=degrees, cells=cells)
@@ -2784,7 +2999,7 @@ def sharded_tnnmg(dev, n2: int = 128, p: int = 3, serial_its: int = 560,
     up = {q: torch.full_like(v, 0.01) for q, v in b.items()}
     t = time.perf_counter()
     x_ser, info_s = solve_tnnmg(A32, b, basis, lo, up, tol=1e-6,
-                                maxiter=serial_its)
+                                maxiter=serial_its, fused=True)
     torch.cuda.synchronize(dev)
     t_ser = time.perf_counter() - t
     t = time.perf_counter()
@@ -2793,12 +3008,18 @@ def sharded_tnnmg(dev, n2: int = 128, p: int = 3, serial_its: int = 560,
                                coarse_cg_iters=3, penalty_scaling=SCALING)
     t_build = time.perf_counter() - t
     fine = pmg.levels[-1]
+    bs, los, ups = (fine.scatter_global(v, basis) for v in (b, lo, up))
     t = time.perf_counter()
-    x_sh, info_p = solve_tnnmg_sharded(
-        pmg, fine.scatter_global(b, basis), fine.scatter_global(lo, basis),
-        fine.scatter_global(up, basis), tol=1e-6, maxiter=sharded_its)
-    torch.cuda.synchronize(dev)
+    x_sh, info_p = graph_route("15b solve_tnnmg_sharded",
+                               lambda: solve_tnnmg_sharded(
+                                   pmg, bs, los, ups, tol=1e-6,
+                                   maxiter=sharded_its))
     t_sh = time.perf_counter() - t
+    # a prefix of 3 iterations by both routes: f32 with colliding
+    # index_add_ atomics, held to the dryrun's iterate bound
+    loop_routes("15b solve_tnnmg_sharded", lambda m: (lambda x, h: (
+        x, h["iterations"]))(*solve_tnnmg_sharded(
+            pmg, bs, los, ups, tol=0.0, maxiter=m)), (1, 3), 1e-3)
     xg = fine.gather_global(x_sh, basis)
     scale = max(float(v.abs().max()) for v in x_ser.values())
     err = max(float((x_ser[q] - xg[q]).abs().max()) for q in x_ser)
@@ -2838,11 +3059,13 @@ def sharded_adaptive(dev, n: int = 128, cycles: int = 3, cg_iters: int = 30):
     meshes = []
     for part in ("planes", "inherit"):
         t = time.perf_counter()
-        mesh, deg, x, info = sharded_adaptive_solve(
-            m0, np.full(n * n, 2), one, group=ShardGroup(8, dev),
-            cycles=cycles, frac=0.3, penalty=PENALTY,
-            penalty_scaling=SCALING, cg_iters=cg_iters, dtype=f64,
-            solver="mg-pcg", partition=part)
+        mesh, deg, x, info = graph_route(
+            f"15c mg-pcg partition={part}", lambda: sharded_adaptive_solve(
+                m0, np.full(n * n, 2), one, group=ShardGroup(8, dev),
+                cycles=cycles, frac=0.3, penalty=PENALTY,
+                penalty_scaling=SCALING, cg_iters=cg_iters, dtype=f64,
+                solver="mg-pcg", partition=part),  # noqa: B023
+            per_iteration=False)
         torch.cuda.synchronize(dev)
         secs = time.perf_counter() - t
         reuse = info["plan_reuse"] or "none recorded (mg-pcg replans)"
@@ -2861,9 +3084,9 @@ def sharded_adaptive(dev, n: int = 128, cycles: int = 3, cg_iters: int = 30):
                           penalty_scaling=SCALING, dtype=f64, device=dev)
     ba = l2_functional(gba, one, dtype=f64, device=dev)
     t = time.perf_counter()
-    x_ref, pinfo = pcg(lambda v: bm.matvec(Aa, v), ba,
-                       precond=block_jacobi_preconditioner(Aa), tol=1e-10,
-                       maxiter=20000)
+    x_ref, pinfo = graph_route("15c serial pcg", lambda: pcg(
+        lambda v: bm.matvec(Aa, v), ba,
+        precond=block_jacobi_preconditioner(Aa), tol=1e-10, maxiter=20000))
     t_ref = time.perf_counter() - t
     scale = max(float(v.abs().max()) for v in x_ref.values())
     err = max(float((x_ref[q] - x[q]).abs().max()) for q in x_ref)
@@ -2902,14 +3125,19 @@ def rank_route(dev, keep: dict):
             rels = []
             for what, a, b in (
                     ("apply", fine.apply(xs), prob.apply(xs)),
-                    ("10 PCG iterations", hp.hp_pcg_solve(fine, bs, 10)[0],
-                     hp.hp_pcg_solve(prob, bs, 10)[0])):
+                    ("10 PCG iterations",
+                     graph_route("15e one process hp_pcg_solve",
+                                 lambda: hp.hp_pcg_solve(fine, bs, 10))[0],
+                     graph_route(f"15e {backend} hp_pcg_solve",
+                                 lambda: hp.hp_pcg_solve(prob, bs, 10))[0])):
                 scale = max(float(v.abs().max()) for v in a.values())
                 rel = max(float((a[p] - b[p]).abs().max())
                           for p in a) / scale
                 rels.append(rel)
                 print(f"15e {backend} world 1 vs one process, {what}: rel "
                       f"{rel:.3e} (bound 1e-13)", flush=True)
+            loop_routes(f"15e {backend} hp_pcg_solve", lambda m: (
+                hp.hp_pcg_solve(prob, bs, m)[0], m), (2, 6), 1e-9)
             ms = _median(event_times(lambda: prob.apply(xs), 10))
             print(f"15e {backend} sharded apply ms (CUDA events, median "
                   f"of 10): {ms:.3f}; host build {prob.build_seconds:.2f} s;"
@@ -2940,16 +3168,21 @@ def _elasticity_force(x):
          torch.zeros_like(x[..., 0]), torch.zeros_like(x[..., 0])], dim=-1)
 
 
-def _pmg_pcg_verified(tag, pmg, b, serial, dev, iters: int, cap: int = 200):
+def _pmg_pcg_verified(tag, pmg, b, serial, dev, iters: int, cap: int = 200,
+                      counts=(1, 2), profile: bool = False):
     """``elasticity_pmg_pcg_solve`` from ``iters`` iterations up to
-    ``cap``, verified by the serial f64 apply (<= 1e-8, hard)."""
+    ``cap``, verified by the serial f64 apply (<= 1e-8, hard), through
+    its graph route; then a prefix by both routes (``loop_routes`` at
+    ``counts``, under the profiler where ``profile``)."""
     from hpdg_tpu_torch.parallel.elasticity import elasticity_pmg_pcg_solve
     p = pmg.levels[-1].p
     nb = float(b.norm())
     while True:
         torch.cuda.synchronize(dev)
         t = time.perf_counter()
-        x, rel = elasticity_pmg_pcg_solve(pmg, b, iters=iters)
+        x, rel = graph_route(f"{tag} elasticity_pmg_pcg_solve",
+                             lambda: elasticity_pmg_pcg_solve(  # noqa: B023
+                                 pmg, b, iters=iters))
         rel = float(rel)
         t_solve = time.perf_counter() - t
         _on_card(tag, dev, x)
@@ -2964,6 +3197,9 @@ def _pmg_pcg_verified(tag, pmg, b, serial, dev, iters: int, cap: int = 200):
         iters = int(min(cap, max(2 * iters, np.ceil(need))))
     if not (verified <= 1e-8 and bool(torch.isfinite(x).all())):
         raise AssertionError(f"{tag}: verified {verified:.3e}")
+    loop_routes(f"{tag} elasticity_pmg_pcg_solve", lambda m: (
+        elasticity_pmg_pcg_solve(pmg, b, iters=m)[0], m), counts, 1e-9,
+        profile=profile)
     return x, iters
 
 
@@ -3154,7 +3390,7 @@ def sharded_elasticity_curved(dev, n_el: int = 24, p: int = 2,
                           profile_apply(lambda: prob.apply(x64)))
         del prob
     b = l2_functional_vec(basis, _elasticity_force, device=dev)[p]
-    _pmg_pcg_verified("16b", pmg, b, serial, dev, iters)
+    _pmg_pcg_verified("16b", pmg, b, serial, dev, iters, profile=True)
 
 
 def sharded_elasticity_example(dev):
@@ -3195,12 +3431,19 @@ def elasticity_rank_route(dev, keep: dict):
             for what, a, c in (
                     ("apply", one.apply(x), prob.apply(x)),
                     ("10 PCG iterations",
-                     elasticity_pcg_solve(one, b, iters=10, **kw)[0],
-                     elasticity_pcg_solve(prob, b, iters=10, **kw)[0])):
+                     graph_route("16d one process elasticity_pcg_solve",
+                                 lambda: elasticity_pcg_solve(
+                                     one, b, iters=10, **kw))[0],
+                     graph_route(f"16d {backend} elasticity_pcg_solve",
+                                 lambda: elasticity_pcg_solve(
+                                     prob, b, iters=10, **kw))[0])):
                 rel = float((a - c).abs().max()) / float(a.abs().max())
                 rels.append(rel)
                 print(f"16d {backend} world 1 vs one process, {what}: rel "
                       f"{rel:.3e} (bound 1e-13)", flush=True)
+            loop_routes(f"16d {backend} elasticity_pcg_solve", lambda m: (
+                elasticity_pcg_solve(prob, b, iters=m, **kw)[0], m), (2, 6),
+                1e-9)
             ms = _median(event_times(lambda: prob.apply(x), 10))
             print(f"16d {backend} sharded elasticity apply ms (CUDA "
                   f"events, median of 10): {ms:.3f}", flush=True)

@@ -47,6 +47,7 @@ from hpdg_tpu_torch.mesh import geometry as geo
 from hpdg_tpu_torch.parallel.comm import (ShardGroup, Sharding,
                                           resolve_group, safe_div)
 from hpdg_tpu_torch.parallel.sharded import detached_copies
+from hpdg_tpu_torch.solvers.graphs import repeat
 
 
 @dataclass
@@ -330,7 +331,8 @@ def elasticity_pcg_solve(prob: ShardedElasticity, b, iters: int = 200,
                          penalty_scaling: str = "measure",
                          dtype=torch.float64):
     """Block-Jacobi-preconditioned CG on the sharded elasticity system
-    (psum dot products, ``iters`` iterations without a host read).
+    (psum dot products, ``iters`` iterations without a host read, one
+    captured and replayed on a card: ``solvers.graphs.repeat``).
 
     The preconditioner blocks come from the extended template's interior
     rows: exact on interior shards; edge shards' boundary-layer blocks
@@ -340,7 +342,9 @@ def elasticity_pcg_solve(prob: ShardedElasticity, b, iters: int = 200,
     in the reference.  Returns ``(x, ||r||)``."""
     dinv_mul = elasticity_dinv_mul(prob, mu=mu, lam=lam, penalty=penalty,
                                    dirichlet=dirichlet, dtype=dtype)
-    return _elasticity_pcg_runner(prob, dinv_mul, iters)(b)
+    start, body = _elasticity_pcg(prob, dinv_mul)
+    x, r, *_ = repeat(body, start(b), iters)
+    return x, _norm(prob.group, r)
 
 
 def elasticity_dinv_mul(prob: ShardedElasticity, mu: float = 1.0,
@@ -378,26 +382,40 @@ def elasticity_dinv_mul(prob: ShardedElasticity, mu: float = 1.0,
     return dinv_mul
 
 
-def _elasticity_pcg_runner(prob: ShardedElasticity, dinv_mul, iters: int):
-    """Block-Jacobi PCG ``b -> (x, ||r||)`` of a fixed count."""
+def _elasticity_pcg(prob: ShardedElasticity, dinv_mul):
+    """Block-Jacobi PCG as ``start(b) -> state`` (from zero) and
+    ``body(state) -> state``, the state ``(x, r, z, p, rz)``."""
     g = prob.group
 
-    def run(b):
-        x = torch.zeros_like(b)
-        r = b
+    def start(b):
+        z = dinv_mul(b)
+        return torch.zeros_like(b), b, z, z, _dot(g, b, z)
+
+    def body(state):
+        x, r, z, pv, rz = state
+        Ap = prob.apply(pv)
+        alpha = safe_div(rz, _dot(g, pv, Ap))
+        x = x + alpha * pv
+        r = r - alpha * Ap
         z = dinv_mul(r)
-        pv = z
-        rz = _dot(g, r, z)
+        rz_new = _dot(g, r, z)
+        pv = z + safe_div(rz_new, rz) * pv
+        return x, r, z, pv, rz_new
+
+    return start, body
+
+
+def _elasticity_pcg_runner(prob: ShardedElasticity, dinv_mul, iters: int):
+    """Block-Jacobi PCG ``b -> (x, ||r||)`` of a fixed count, a host loop
+    with no host read (the coarse solve of a V-cycle, captured with the
+    cycle)."""
+    start, body = _elasticity_pcg(prob, dinv_mul)
+
+    def run(b):
+        state = start(b)
         for _ in range(iters):
-            Ap = prob.apply(pv)
-            alpha = safe_div(rz, _dot(g, pv, Ap))
-            x = x + alpha * pv
-            r = r - alpha * Ap
-            z = dinv_mul(r)
-            rz_new = _dot(g, r, z)
-            pv = z + safe_div(rz_new, rz) * pv
-            rz = rz_new
-        return x, _norm(g, r)
+            state = body(state)
+        return state[0], _norm(prob.group, state[1])
 
     return run
 
@@ -534,9 +552,12 @@ def build_sharded_elasticity_pmg(cells, p: int, mu: float = 1.0,
                                                      prob.bs)),
                                prob.n_local))
         v = v / _norm(group, v)
-        for _ in range(30):
+
+        def power(v, prob=prob, dinv=dinv):
             w = dinv(prob.apply(v))
-            v = w / _norm(group, w)
+            return w / _norm(group, w)
+
+        v = repeat(power, v, 30)
         lmaxs.append(1.05 * float(_norm(group, dinv(prob.apply(v)))))
 
     def cheb(prob, dinv, lmax, x, b, degree, lmin_frac=0.15):
@@ -638,33 +659,22 @@ def build_sharded_elasticity_pmg(cells, p: int, mu: float = 1.0,
 
 def solve_sharded_elasticity_pmg(pmg: ShardedElasticityPMG, b,
                                  cycles: int = 20):
-    """``cycles`` V-cycles from zero -> ``(x, ||b - A x||)``."""
+    """``cycles`` V-cycles from zero, one captured and replayed on a card
+    (``solvers.graphs.repeat``) -> ``(x, ||b - A x||)``."""
     fine = pmg.levels[-1]
-    x = torch.zeros_like(b)
-    for _ in range(cycles):
-        x = pmg.step(x, b)
+    x = repeat(lambda x: pmg.step(x, b), torch.zeros_like(b), cycles)
     return x, _norm(fine.group, b - fine.apply(x))
 
 
 def elasticity_pmg_pcg_solve(pmg: ShardedElasticityPMG, b,
                              iters: int = 30):
     """V-cycle-preconditioned CG, ``iters`` iterations without a host
-    read -> ``(x, ||r|| / ||b||)``.  The symmetric V-cycle from zero is
-    an SPD preconditioner, so plain CG applies."""
+    read, one (with its V-cycle) captured and replayed on a card ->
+    ``(x, ||r|| / ||b||)``.  The symmetric V-cycle from zero is an SPD
+    preconditioner, so plain CG applies."""
     fine = pmg.levels[-1]
     g = fine.group
-    x = torch.zeros_like(b)
-    r = b
-    z = pmg.step(torch.zeros_like(r), r)
-    pv = z
-    rz = _dot(g, r, z)
-    for _ in range(iters):
-        Ap = fine.apply(pv)
-        alpha = safe_div(rz, _dot(g, pv, Ap))
-        x = x + alpha * pv
-        r = r - alpha * Ap
-        z = pmg.step(torch.zeros_like(r), r)
-        rz_new = _dot(g, r, z)
-        pv = z + safe_div(rz_new, rz) * pv
-        rz = rz_new
+    start, body = _elasticity_pcg(
+        fine, lambda r: pmg.step(torch.zeros_like(r), r))
+    x, r, *_ = repeat(body, start(b), iters)
     return x, _norm(g, r) / _norm(g, b)

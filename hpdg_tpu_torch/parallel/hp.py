@@ -46,6 +46,7 @@ from hpdg_tpu_torch.matrixfree.sumfact import _chain
 from hpdg_tpu_torch.mesh import geometry as geo
 from hpdg_tpu_torch.parallel.comm import (ShardGroup, Sharding,
                                           resolve_group, safe_div)
+from hpdg_tpu_torch.solvers.graphs import repeat
 
 _I = np.int32
 
@@ -1108,15 +1109,19 @@ def _zeros_like(b: dict) -> dict:
     return {p: torch.zeros_like(v) for p, v in b.items()}
 
 
-def _pcg(apply, precond, b: dict, x: dict, iters: int, group):
-    """Fixed-count PCG from ``x`` (a host loop with no host read; the
-    guarded divisions make converged iterations no-ops).  Returns
-    ``(x, r)``."""
+def _pcg_start(apply, precond, b: dict, x: dict, group):
+    """The PCG state ``(x, r, z, p, rz)`` at ``x``."""
     r = hp_axpy(-1.0, apply(x), b)
     z = precond(r)
-    rz = hp_dot(r, z, group)
-    pv = z
-    for _ in range(iters):
+    return x, r, z, z, hp_dot(r, z, group)
+
+
+def _pcg_body(apply, precond, group):
+    """One PCG iteration on the state of :func:`_pcg_start`; the guarded
+    divisions make converged iterations no-ops."""
+
+    def body(state):
+        x, r, z, pv, rz = state
         Ap = apply(pv)
         alpha = safe_div(rz, hp_dot(pv, Ap, group))
         x = hp_axpy(alpha, pv, x)
@@ -1124,16 +1129,37 @@ def _pcg(apply, precond, b: dict, x: dict, iters: int, group):
         z = precond(r)
         rz_new = hp_dot(r, z, group)
         pv = hp_axpy(safe_div(rz_new, rz), pv, z)
-        rz = rz_new
+        return x, r, z, pv, rz_new
+
+    return body
+
+
+def _pcg(apply, precond, b: dict, x: dict, iters: int, group):
+    """Fixed-count PCG from ``x`` (a host loop with no host read: the
+    coarse solve inside a V-cycle, captured with the cycle).  Returns
+    ``(x, r)``."""
+    body = _pcg_body(apply, precond, group)
+    state = _pcg_start(apply, precond, b, x, group)
+    for _ in range(iters):
+        state = body(state)
+    return state[0], state[1]
+
+
+def _pcg_graph(apply, precond, b: dict, x: dict, iters: int, group):
+    """:func:`_pcg` as the reference's ``fori_loop``: one iteration
+    captured and replayed on a card (``solvers.graphs.repeat``)."""
+    x, r, *_ = repeat(_pcg_body(apply, precond, group),
+                      _pcg_start(apply, precond, b, x, group), iters)
     return x, r
 
 
 def hp_pcg_solve(prob: HPSharded, b: dict, iters: int = 200,
                  x0: dict = None):
     """Block-Jacobi-preconditioned CG on sharded bucket dicts, ``iters``
-    iterations.  Returns ``(x, ||r||)``."""
+    iterations, one captured and replayed on a card.  Returns ``(x,
+    ||r||)``."""
     x0 = x0 if x0 is not None else _zeros_like(b)
-    x, r = _pcg(prob.apply, prob.dinv_mul, b, x0, iters, prob.group)
+    x, r = _pcg_graph(prob.apply, prob.dinv_mul, b, x0, iters, prob.group)
     return x, hp_norm(r, prob.group)
 
 
@@ -1153,10 +1179,13 @@ def _hp_rho_est(prob: HPSharded, dtype, iters: int = 30,
         v[p] = torch.as_tensor(g.local_rows(full, prob.m_own[p]),
                                dtype=dtype, device=g.device)
     M = precond if precond is not None else prob.dinv_mul
-    for _ in range(iters):
+
+    def power(v):
         w = M(prob.apply(v))
         nw = hp_norm(w, g)
-        v = {p: a / nw for p, a in w.items()}
+        return {p: a / nw for p, a in w.items()}
+
+    v = repeat(power, v, iters)
     return float(hp_norm(M(prob.apply(v)), g))
 
 
@@ -1347,12 +1376,13 @@ def build_hp_sharded_pmg(cells, degrees, group: ShardGroup | None = None,
 
 def hp_pmg_pcg_solve(pmg: HPShardedPMG, b: dict, iters: int = 30):
     """V-cycle-preconditioned CG on sharded bucket dicts, ``iters``
-    iterations.  Returns ``(x, relative residual)``."""
+    iterations, one (with its V-cycle) captured and replayed on a card.
+    Returns ``(x, relative residual)``."""
     fine = pmg.levels[-1]
     g = fine.group
     nb = hp_norm(b, g)
-    x, r = _pcg(fine.apply, lambda r: pmg.step(_zeros_like(r), r), b,
-                _zeros_like(b), iters, g)
+    x, r = _pcg_graph(fine.apply, lambda r: pmg.step(_zeros_like(r), r), b,
+                      _zeros_like(b), iters, g)
     return x, hp_norm(r, g) / nb
 
 

@@ -17,6 +17,7 @@ from hpdg_tpu_torch.basis import tensor
 from hpdg_tpu_torch.parallel.comm import ShardGroup, resolve_group
 from hpdg_tpu_torch.parallel.sharded import (build_sharded_poisson,
                                              pcg_step, init_state, _dot)
+from hpdg_tpu_torch.solvers.graphs import repeat
 
 
 @dataclass
@@ -103,9 +104,12 @@ def build_sharded_pmg(cells, p: int, group: ShardGroup | None = None,
         v = torch.ones((group.L * prob.n_local, (prob.p + 1) ** dim),
                        dtype=dtype, device=group.device)
         v = v / torch.sqrt(_dot(prob, v, v))
-        for _ in range(20):
+
+        def power(v, prob=prob):
             w = prob.precond(prob.apply(v))
-            v = w / torch.sqrt(_dot(prob, w, w))
+            return w / torch.sqrt(_dot(prob, w, w))
+
+        v = repeat(power, v, 20)
         w = prob.precond(prob.apply(v))
         rho = float(torch.sqrt(_dot(prob, w, w)))
         omegas.append(min(jacobi_omega, 1.0 / rho))
@@ -173,10 +177,9 @@ def build_sharded_pmg(cells, p: int, group: ShardGroup | None = None,
 
 
 def solve_sharded_pmg(pmg: ShardedPMG, b, cycles: int = 20):
-    """``cycles`` V-cycles from zero; returns ``(x, ||b - A x||)``."""
+    """``cycles`` V-cycles from zero, one captured and replayed on a card
+    (``solvers.graphs.repeat``); returns ``(x, ||b - A x||)``."""
     fine = pmg.levels[-1]
-    x = torch.zeros_like(b)
-    for _ in range(cycles):
-        x = pmg.step(x, b)
+    x = repeat(lambda x: pmg.step(x, b), torch.zeros_like(b), cycles)
     r = b - fine.apply(x)
     return x, torch.sqrt(_dot(fine, r, r))

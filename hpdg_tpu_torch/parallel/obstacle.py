@@ -10,9 +10,12 @@ Port of ``hpdg_tpu.parallel.obstacle``.  Per iteration:
 4. projection of the correction into the constraints;
 5. exact quadratic line search by group psums, NaN-guarded.
 
-The host loop reads the correction norm (and the history columns) once
-per iteration.  Padding rows sit at the trivial constraint lo = up = 0,
-so they stay exactly zero.
+The iteration is one body over a static iterate, captured as a CUDA
+graph on a card and replayed (``solvers.graphs.DeviceLoop``), as the
+reference jits its ``step``; the power iteration of the default damping
+is a replayed fixed-count loop.  The host reads the correction norm
+(and the history columns) once per iteration.  Padding rows sit at the
+trivial constraint lo = up = 0, so they stay exactly zero.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from hpdg_tpu_torch.parallel.comm import safe_div
 from hpdg_tpu_torch.parallel.hp import (HPShardedPMG, hp_dot, hp_axpy,
                                         hp_norm, _zeros_like)
+from hpdg_tpu_torch.solvers.graphs import DeviceLoop, repeat
 
 
 def solve_tnnmg_sharded(pmg: HPShardedPMG, b: dict, lo: dict, up: dict,
@@ -49,12 +53,14 @@ def solve_tnnmg_sharded(pmg: HPShardedPMG, b: dict, lo: dict, up: dict,
         v = {p: torch.ones_like(a) for p, a in b.items()}
         nw = torch.ones((), dtype=next(iter(b.values())).dtype,
                         device=g.device)
-        for _ in range(30):
-            w = fine.dinv_mul(fine.apply(v))
+
+        def power(state):
+            w = fine.dinv_mul(fine.apply(state[0]))
             nw = hp_norm(w, g)
             inv = torch.where(nw > 0, 1.0 / nw, torch.zeros_like(nw))
-            v = {p: a * inv for p, a in w.items()}
-        rho = float(nw)
+            return {p: a * inv for p, a in w.items()}, nw
+
+        rho = float(repeat(power, (v, nw), 30)[1])
         omega = min(0.95 / max(rho, 1e-3), 1.0)
 
     def local_projected_solve(Dm, r_loc, y, lo_b, up_b, inner=2):
@@ -138,15 +144,15 @@ def solve_tnnmg_sharded(pmg: HPShardedPMG, b: dict, lo: dict, up: dict,
         x = hp_axpy(alpha, c, x)
         corr = hp_norm({p: x[p] - x_start[p] for p in x}, g)
         energy = 0.5 * hp_dot(x, fine.apply(x), g) - hp_dot(b, x, g)
-        return x, corr, alpha, ntrunc, energy
+        return x, torch.stack([corr, alpha.to(corr.dtype),
+                               ntrunc.to(corr.dtype), energy])
 
-    x = {p: clip(torch.zeros_like(v), lo[p], up[p]) for p, v in b.items()}
+    loop = DeviceLoop(step, {p: clip(torch.zeros_like(v), lo[p], up[p])
+                             for p, v in b.items()})
     history = {"correction": [], "damping": [], "truncated": [],
                "energy": []}
     for _ in range(maxiter):
-        x, corr, alpha, ntrunc, energy = step(x)
-        vals = torch.stack([corr, alpha.to(corr.dtype),
-                            ntrunc.to(corr.dtype), energy]).tolist()
+        vals = loop.step().tolist()  # the iteration's one host read
         history["correction"].append(vals[0])
         history["damping"].append(vals[1])
         history["truncated"].append(int(vals[2]) - n_pad_dofs)
@@ -154,4 +160,4 @@ def solve_tnnmg_sharded(pmg: HPShardedPMG, b: dict, lo: dict, up: dict,
         if vals[0] < tol:
             break
     history["iterations"] = len(history["correction"])
-    return x, history
+    return loop.state, history

@@ -30,6 +30,7 @@ from hpdg_tpu_torch.matrixfree.sumfact import sipg_operator
 from hpdg_tpu_torch.matrixfree.diagonal import sipg_diagonal_blocks
 from hpdg_tpu_torch.parallel.comm import (ShardGroup, Sharding,
                                           resolve_group, safe_div)
+from hpdg_tpu_torch.solvers.graphs import repeat
 
 
 def detached_copies(m, L: int, gap: float):
@@ -228,11 +229,9 @@ def init_state(prob: ShardedPoisson, b):
 
 
 def pcg_solve(prob: ShardedPoisson, b, iters: int):
-    """``iters`` PCG iterations (no host read inside the loop); returns
-    ``(x, ||r||)``."""
-    step = pcg_step(prob)
-    state = init_state(prob, b)
-    for _ in range(iters):
-        state = step(state)
-    x, r = state[0], state[1]
+    """``iters`` PCG iterations with no host read inside the loop, the
+    reference's ``fori_loop``: one iteration captured as a CUDA graph and
+    replayed on a card (``solvers.graphs.repeat``); returns ``(x,
+    ||r||)``."""
+    x, r, *_ = repeat(pcg_step(prob), init_state(prob, b), iters)
     return x, torch.sqrt(_dot(prob, r, r))

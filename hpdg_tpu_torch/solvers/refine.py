@@ -31,32 +31,12 @@ import time
 import torch
 
 from hpdg_tpu_torch.linalg import blockvector as bv
+from hpdg_tpu_torch.solvers.graphs import capture_graph
 
 
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def capture_graph(fn, device, pool=None):
-    """Capture ``fn()`` into a ``torch.cuda.CUDAGraph`` on ``device``.
-
-    ``fn`` runs once eagerly on a side stream first (the warm-up builds
-    every lazily built device table and library handle, which capture
-    forbids), then once under capture.  Returns ``(graph, out)``: ``out``
-    is what the captured call returned, tensors that every replay
-    rewrites in place.  Raises where ``fn`` cannot be captured.
-    """
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream(device).wait_stream(side)
-    torch.cuda.synchronize(device)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        out = fn()
-    return graph, out
 
 
 def refinement_solve(step, residual, b64: dict, *, chain_k: int = 2,

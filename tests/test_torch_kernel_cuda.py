@@ -18,7 +18,13 @@ equals K1 eager bit for bit.  Config 5's two programs, the fused TNNMG
 graphs over static buffers), against their eager routes to the bounds
 of two f32 routes that sum in another order; an iteration that syncs
 with the host makes the fused TNNMG raise; the verified obstacle solve
-on the card verifies.
+on the card verifies.  The device loops (``solvers.graphs``): each
+driver replayed from its graph against the same bodies run eagerly on
+the card (equal iterations, x within 1e-10 of max|x|: f64 sums whose
+atomics collide), a pcg whose matvec syncs with the host makes the
+capture raise, pcg under a caller's capture equals pcg called alone, and
+an NCCL group of world size 1 replays its psums within 1e-13 of one
+process.
 """
 
 import numpy as np
@@ -388,3 +394,191 @@ def test_solve_obstacle_verified_on_card_verifies(dev):
     for run in info["runs"]:
         assert run["verified"] and run["truncated"] > 0
     assert x[3].shape == (1024, 16)
+
+
+# ---------------------------------------------------------------------------
+# the reference's device loops as replayed CUDA graphs (solvers.graphs)
+# ---------------------------------------------------------------------------
+
+LOOP_DRIVERS = ["pcg", "loop_solve", "tnnmg_sharded", "sharded_pcg",
+                "sharded_pmg", "hp_pcg", "hp_pmg_pcg", "elasticity_pcg",
+                "elasticity_pmg", "elasticity_pmg_pcg"]
+
+
+def _run_loop_driver(name, dev):
+    """Driver ``name`` at a small size on ``dev`` in f64: ``(x, info,
+    iterations replayed after the warm-up block)``."""
+    from hpdg_tpu_torch.assemble import assemble_laplace
+    from hpdg_tpu_torch.blocks import api
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.parallel import elasticity as el
+    from hpdg_tpu_torch.parallel import hp, multigrid, obstacle, sharded
+    from hpdg_tpu_torch.parallel.comm import ShardGroup
+    from hpdg_tpu_torch.solvers import pcg
+    from hpdg_tpu_torch.solvers.smoothers import block_jacobi_preconditioner
+    if name in ("pcg", "loop_solve"):
+        deg = np.random.default_rng(1).integers(2, 4, size=27)
+        tb = DGBasis(tmesh.structured((3, 3, 3)), deg)
+        A = assemble_laplace(tb, device=dev, **KW)
+        b = bv.random(tb, 2, device=dev)
+        if name == "pcg":
+            x, info = pcg(lambda v: bm.matvec(A, v), b,
+                          precond=block_jacobi_preconditioner(A), tol=1e-10,
+                          maxiter=500)
+            return x, info["iterations"], None
+        x, info = api.solve_linear(tb, A, b, method="multigrid", tol=1e-9,
+                                   maxiter=40)
+        return x, info["iterations"], info["iterations"] - 1
+    cells, p = (8, 4), 2
+    group = ShardGroup(4, dev)
+    if name in ("tnnmg_sharded", "hp_pcg", "hp_pmg_pcg"):
+        deg = np.full(32, p)
+        pmg = hp.build_hp_sharded_pmg(cells, deg, group=group,
+                                      coarse_cg_iters=3, **KW)
+        fine = pmg.levels[-1]
+        tb = DGBasis(tmesh.structured(cells), deg)
+        b = l2_functional(tb, lambda x: torch.ones_like(x[..., 0]),
+                          device=dev)
+        bs = fine.scatter_global(b, tb)
+        if name == "hp_pcg":
+            return hp.hp_pcg_solve(fine, bs, iters=12)[0], 12, 11
+        if name == "hp_pmg_pcg":
+            return hp.hp_pmg_pcg_solve(pmg, bs, iters=4)[0], 4, 3
+        lo = {q: torch.full_like(v, -torch.inf) for q, v in b.items()}
+        up = {q: torch.full_like(v, 0.01) for q, v in b.items()}
+        x, h = obstacle.solve_tnnmg_sharded(
+            pmg, bs, fine.scatter_global(lo, tb), fine.scatter_global(up, tb),
+            tol=0.0, maxiter=4, pre_sweeps=2, inner_cg_iters=2)
+        return x, h["iterations"], 3
+    rng = np.random.default_rng(7)
+    if name in ("sharded_pcg", "sharded_pmg"):
+        b = torch.as_tensor(rng.standard_normal((32, (p + 1) ** 2)),
+                            device=dev)
+        if name == "sharded_pcg":
+            prob = sharded.build_sharded_poisson(cells, p, group=group,
+                                                 penalty=4.0)
+            return sharded.pcg_solve(prob, b, 6)[0], 6, 5
+        pmg = multigrid.build_sharded_pmg(cells, p, group=group, penalty=4.0,
+                                          dtype=torch.float64, pre_steps=2,
+                                          post_steps=2, coarse_cg_iters=3)
+        return multigrid.solve_sharded_pmg(pmg, b, cycles=2)[0], 2, 1
+    ekw = dict(mu=1.0, lam=1.5, penalty=8.0, dirichlet=True)
+    if name == "elasticity_pcg":
+        prob = el.build_sharded_elasticity(cells, p, group=group, **ekw)
+        b = torch.as_tensor(rng.standard_normal((prob.n_global, prob.bs)),
+                            device=dev)
+        return el.elasticity_pcg_solve(prob, b, iters=8, **ekw)[0], 8, 7
+    pmg = el.build_sharded_elasticity_pmg(cells, p, group=group,
+                                          coarse_cg_iters=3, smoother="cheb",
+                                          **ekw)
+    b = torch.as_tensor(rng.standard_normal((pmg.levels[-1].n_global,
+                                             pmg.levels[-1].bs)), device=dev)
+    if name == "elasticity_pmg":
+        return el.solve_sharded_elasticity_pmg(pmg, b, cycles=2)[0], 2, 1
+    return el.elasticity_pmg_pcg_solve(pmg, b, iters=3)[0], 3, 2
+
+
+@pytest.mark.parametrize("name", LOOP_DRIVERS)
+def test_device_loop_graph_matches_eager_on_card(dev, name):
+    """The replayed graph against the same body run eagerly on the card:
+    the same iterations, x within 1e-10 of max|x| (f64 sums whose
+    ``index_add_`` atomics collide come in another order)."""
+    from hpdg_tpu_torch.solvers import graphs
+    with graphs.eager_loops():
+        graphs.reset_counts()
+        xe, ke, _ = _run_loop_driver(name, dev)
+        assert graphs.counts["captures"] == graphs.counts["replays"] == 0
+    graphs.reset_counts()
+    xg, kg, replayed = _run_loop_driver(name, dev)
+    torch.cuda.synchronize()
+    assert kg == ke
+    want, got = (v if isinstance(v, dict) else {0: v} for v in (xe, xg))
+    scale = max(float(v.abs().max()) for v in want.values())
+    err = max(float((want[q] - got[q]).abs().max()) for q in want)
+    assert err <= 1e-10 * scale
+    assert graphs.counts["captures"] >= 1
+    if replayed is not None:  # the driver's own loop; the last capture
+        assert graphs.counts["iterations"] >= replayed
+    else:  # pcg: blocks of PCG_BLOCK, the first one the warm-up
+        from hpdg_tpu_torch.solvers.cg import PCG_BLOCK
+        assert graphs.counts["replays"] == -(-kg // PCG_BLOCK) - 1
+
+
+def test_pcg_raises_where_the_iteration_cannot_be_captured(dev):
+    from hpdg_tpu_torch.assemble import assemble_laplace
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.solvers import pcg
+    tb = DGBasis(tmesh.structured((2, 2, 2)), np.full(8, 2))
+    A = assemble_laplace(tb, device=dev, **KW)
+    b = bv.random(tb, 3, device=dev)
+
+    def syncing(v):
+        if float(bv.norm(v)) == 0.0:  # a host read: illegal under capture
+            return v
+        return bm.matvec(A, v)
+
+    with pytest.raises(RuntimeError):
+        pcg(syncing, b, tol=1e-10, maxiter=100)
+    # the card is still usable, and the eager route takes that matvec
+    from hpdg_tpu_torch.solvers.graphs import eager_loops
+    with eager_loops():
+        _, info = pcg(syncing, b, tol=1e-10, maxiter=100)
+    assert 0 < info["iterations"] < 100
+
+
+def test_pcg_inside_a_callers_capture_runs_every_iteration(dev):
+    """Under a caller's capture pcg records all ``maxiter`` iterations
+    with no host read; replaying the caller's graph equals pcg called
+    eagerly (the frozen iterations change nothing)."""
+    from hpdg_tpu_torch.assemble import assemble_laplace
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.solvers import pcg
+    from hpdg_tpu_torch.solvers.smoothers import block_jacobi_preconditioner
+    tb = DGBasis(tmesh.structured((2, 2, 2)), np.full(8, 2))
+    A = assemble_laplace(tb, device=dev, **KW)
+    M = block_jacobi_preconditioner(A)
+    b = bv.random(tb, 3, device=dev)
+    want, info = pcg(lambda v: bm.matvec(A, v), b, precond=M, tol=1e-9,
+                     maxiter=60)
+    graph, (x, k, hist) = capture_graph(lambda: (lambda x, i: (
+        x, i["iterations"], i["residuals"]))(*pcg(
+            lambda v: bm.matvec(A, v), b, precond=M, tol=1e-9, maxiter=60)),
+        dev)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert int(k) == info["iterations"] < 60
+    assert hist.shape == (61,)
+    assert float((hist.cpu() - info["residuals"]).abs().max()) \
+        <= 1e-10 * float(info["residuals"][0])
+    assert float((x[2] - want[2]).abs().max()) \
+        <= 1e-10 * float(want[2].abs().max())
+
+
+def test_nccl_rank_route_replays_its_loops(dev, tmp_path):
+    """A ``torch.distributed`` NCCL group of world size 1: the sharded
+    PCG's all_reduce psums captured into its graph and replayed, equal
+    to the one-process group within 1e-13."""
+    import torch.distributed as dist
+    from hpdg_tpu_torch.parallel import hp
+    from hpdg_tpu_torch.parallel.comm import ShardGroup
+    from hpdg_tpu_torch.solvers import graphs
+    cells, deg = (8, 4), np.full(32, 2)
+    one = hp.build_hp_sharded(cells, deg, group=ShardGroup(4, dev), **KW)
+    tb = DGBasis(tmesh.structured(cells), deg)
+    bs = one.scatter_global(l2_functional(
+        tb, lambda x: torch.ones_like(x[..., 0]), device=dev), tb)
+    want, _ = hp.hp_pcg_solve(one, bs, 10)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        g = ShardGroup.from_process_group(4, device=dev)
+        prob = hp.build_hp_sharded(cells, deg, group=g, **KW)
+        graphs.reset_counts()
+        got, _ = hp.hp_pcg_solve(prob, bs, 10)
+        torch.cuda.synchronize()
+        assert graphs.counts["replays"] == 9
+    finally:
+        dist.destroy_process_group()
+    scale = max(float(v.abs().max()) for v in want.values())
+    assert max(float((want[q] - got[q]).abs().max()) for q in want) \
+        <= 1e-13 * scale
