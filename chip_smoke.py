@@ -9,9 +9,10 @@ Phases (any failure ends the run with a nonzero exit code):
 
 1. the card's name and power limit (nvidia-smi), torch/CUDA versions,
    TF32 off;
-2. build the uniform-stencil kernel K1 (nvcc, sm_90a) from the sources,
-   print ptxas' report (registers, spills) and each instantiation's
-   resident blocks per SM;
+2. build the uniform-stencil kernel K1 and the block SpMV kernel K2
+   (nvcc, sm_90a, both sources at once) from the sources, print ptxas'
+   report (registers, spills) and each K1 instantiation's resident
+   blocks per SM;
 3. K1 against its plain PyTorch twin at every level shape of the 12^3 and
    32^3 solves, a 2D lattice and one 3D lattice per instantiation that is
    no multiple of its tile, both penalty scalings, Dirichlet on and off
@@ -82,7 +83,17 @@ Phases (any failure ends the run with a nonzero exit code):
    and the matrix-free elasticity apply on a seeded vector, f64 against
    the assembled A64 (1e-11 of max|y|) and f32 against f64 (1e-5), its
    ms per apply (CUDA events, median of 10) and launches per apply
-   (profiler) beside the assembled SpMV's;
+   (profiler) beside the assembled SpMV's; K2, the block SpMV kernel
+   that ``blockmatrix.matvec`` launches on the card, against its plain
+   version (gather, ``bmm``, zero fill, ``index_add_``: the port's route
+   before K2) at the three level shapes in f32 (1e-5 of max|y|) and on
+   A64 in f64 (1e-12): its median ms (CUDA events), device ms and
+   launches per apply (profiler), its bound (each block, x, y and the
+   row table moved once, at 3.35 TB/s) and the share of it, the plain
+   route's ms and ``library_ms``, one ``torch.sparse_bsr_tensor``
+   product; K2's launches in the stepwise solve (the wrapper's count,
+   set to 0 just before it) and, by the profiler, in one replayed chain
+   of 10 V-cycles, equal to the launches captured into that graph;
 9. the scalar assembled hp-MG of ``tests/test_parity_cpp.py:84-125`` in
    f64 on the card (12^3 p=4, re-assembled levels, lexicographic block
    GS 3+3, dense coarse solve): each of its 9 cycles within
@@ -262,6 +273,7 @@ checkout, the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -276,6 +288,7 @@ PENALTY = 2.0
 SCALING = "normal"
 # H100 SXM peaks (data sheet, 700 W): FP32 on the CUDA cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
 PEAK_BYTES = 3.35e12
 
 
@@ -1213,8 +1226,8 @@ def hp_solve(dev, cells=(8, 8, 8)):
 
 
 def host_matvec(pattern, vals: dict, x: dict) -> dict:
-    """``A x`` in host numpy f64, a route independent of the port's
-    ``bmm`` + ``index_add_`` SpMV."""
+    """``A x`` in host numpy f64, a route independent of the port's SpMV
+    (K2 on the card)."""
     out = {}
     for (pr, pc), (rows, cols) in pattern.entries.items():
         contrib = np.matmul(vals[(pr, pc)], x[pc][cols][:, :, None])[:, :, 0]
@@ -1236,6 +1249,7 @@ def elasticity_solve(dev, n_el: int = 24):
     from hpdg_tpu_torch.basis.dgbasis import DGBasis
     from hpdg_tpu_torch.linalg import blockmatrix as bm
     from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.ops import block_spmv
     from hpdg_tpu_torch.solvers import patches as pat
     from hpdg_tpu_torch.solvers import smoothers as sm
     from hpdg_tpu_torch.solvers.multigrid import (multigrid_solver,
@@ -1305,6 +1319,7 @@ def elasticity_solve(dev, n_el: int = 24):
             and all(s.startswith("class-patch") for s in data.smoothers)):
         raise AssertionError("elasticity: not the class-patch hierarchy "
                              "with a GS coarse level (41,472 dofs at 24^3)")
+    k2 = k2_levels(data, A64, dev)
 
     keys = sorted(b64)
     vals_host = {k: v.cpu().numpy() for k, v in A64.values.items()}
@@ -1318,7 +1333,14 @@ def elasticity_solve(dev, n_el: int = 24):
     residual = lambda x: bv.sub(b64, bm.matvec(A64, x))  # noqa: E731
     kw_solve = dict(chain_k=10, tol=1e-8, max_steps=10,
                     host_residual=host_residual)
+    block_spmv.launches = block_spmv.captured = 0
     x64, res = refinement_solve(step, residual, b64, **kw_solve)
+    torch.cuda.synchronize()
+    k2_launches = block_spmv.launches
+    print(f"elasticity K2 launches in the stepwise solve: {k2_launches} "
+          f"({res['steps']} anchors, {res['cycles']} V-cycles)", flush=True)
+    if k2_launches == 0:
+        raise AssertionError("elasticity: the solve never launched K2")
     finite = all(bool(torch.isfinite(v).all()) for v in x64.values())
     shapes = all(tuple(x64[k].shape) == (basis.bucket_size(k),
                                          3 * basis.n_local(k)) for k in keys)
@@ -1356,8 +1378,181 @@ def elasticity_solve(dev, n_el: int = 24):
           f"graph {t_graph:.3f} ms; busy share eager {busy(prof)}, "
           f"replayed {busy(prof_graph)}", flush=True)
     del graph
+    k2_chain = k2_chain_launches(step, b32, kw_solve["chain_k"], dev)
     return dict(assembly_s=t_asm, assembly_peak_gb=asm_peak_gb,
-                peak_gb=peak / 1e9, apply_ms=apply_ms)
+                peak_gb=peak / 1e9, apply_ms=apply_ms, k2=k2,
+                k2_launches=k2_launches, k2_chain=k2_chain)
+
+
+def k2_chain_launches(step, b32: dict, chain_k: int, dev) -> int:
+    """K2's launches in one replayed chain of ``chain_k`` V-cycles (the
+    fused refinement's chain without its scaling and update, which
+    launch no SpMV), counted by the profiler on the card; asserts they
+    equal the launches the wrapper counted into the graph's capture."""
+    from hpdg_tpu_torch.linalg import blockvector as bv
+    from hpdg_tpu_torch.ops import block_spmv
+    from hpdg_tpu_torch.solvers.refine import capture_graph
+
+    def chain():
+        c = bv.zeros_like(b32)
+        for _ in range(chain_k):
+            c = step(c, b32)
+        return c
+
+    block_spmv.captured = 0
+    graph, _ = capture_graph(chain, dev)
+    captured = block_spmv.captured
+    kernels, wall = traced(graph.replay, graph.replay)
+    seen = [ms for name, ms in kernels if "block_spmv" in name]
+    print(f"elasticity K2 in one replayed chain of {chain_k} V-cycles: "
+          f"{len(seen)} launches ({captured} captured), "
+          f"{sum(seen):.3f} of {sum(ms for _, ms in kernels):.3f} device "
+          f"ms in {len(kernels)} kernels, wall {1e3 * wall:.3f} ms",
+          flush=True)
+    del graph
+    if not seen or len(seen) != captured:
+        raise AssertionError(f"K2 launches in a replayed chain: the profiler "
+                             f"saw {len(seen)}, the capture recorded "
+                             f"{captured}")
+    return len(seen)
+
+
+def k2_bound(M) -> tuple:
+    """(ms, "bytes" | "operations"): the least time the card could take
+    for ``matvec(M, x)``: each block, x, y and K2's row table moved once
+    at the HBM rate, against 2 br bc FLOP per block at the FP32 or FP64
+    rate of the values' type."""
+    nbytes = flops = 0.0
+    for (pr, pc), v in M.values.items():
+        nnz, br, bc = v.shape
+        size = v.element_size()
+        nr, nc = M.pattern.row_sizes[pr], M.pattern.col_sizes[pc]
+        nbytes += size * (nnz * br * bc + nc * bc + nr * br)
+        nbytes += 4 * (nr + 1 + 2 * nnz)
+        flops += 2.0 * nnz * br * bc
+    peak = PEAK_F32_FLOPS if next(iter(M.values.values())).dtype \
+        == torch.float32 else PEAK_F64_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def bsr_spmv_ms(M, x: dict, yk: dict, tol: float):
+    """Median ms of ``A @ x`` with the one bucket of M as a
+    ``torch.sparse_bsr_tensor`` (a row-sorted copy of its values), held
+    to K2's ``yk``; ``(None, reason)`` where M has several buckets or
+    PyTorch refuses; the copy is freed before returning."""
+    if len(M.values) != 1:
+        return None, "several buckets"
+    ((pr, pc), vals), = M.values.items()
+    A = xs = yl = None
+    try:
+        t = M.spmv_table((pr, pc), vals.device)
+        A = torch.sparse_bsr_tensor(
+            t["row_ptr"].long(), t["col"].long(), vals[t["slot"].long()],
+            size=(M.pattern.row_sizes[pr] * vals.shape[1],
+                  M.pattern.col_sizes[pc] * vals.shape[2]),
+            check_invariants=False)
+        xs = x[pc].reshape(-1, 1)
+        yl = (A @ xs).reshape(yk[pr].shape)
+        torch.cuda.synchronize()
+        rel = float((yl - yk[pr]).abs().max()) / float(yk[pr].abs().max())
+        if not rel <= tol:
+            raise AssertionError(f"BSR product disagrees with K2: rel "
+                                 f"{rel:.3e}")
+        return float(np.median(event_times(lambda: A @ xs, 10))), None
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    finally:
+        A = xs = yl = None  # noqa: F841
+        torch.cuda.empty_cache()
+
+
+def k2_profile(apply, k2_launches: int = 0, reps: int = 10) -> dict:
+    """Device ms and launches per call of ``apply()`` over a profiler
+    window of ``reps`` calls with idle edges (``traced``).  With
+    ``k2_launches`` (K2's launches per call), the device ms are K2's
+    mean kernel time times that count, which a kernel lost at a
+    window's edge does not bias."""
+    def body():
+        for _ in range(reps):
+            apply()
+
+    kernels, _ = traced(body, apply)
+    k2 = [ms for name, ms in kernels if "block_spmv" in name]
+    if k2_launches:
+        dev_ms = sum(k2) / len(k2) * k2_launches if k2 else None
+    else:
+        dev_ms = sum(ms for _, ms in kernels) / reps if kernels else None
+    return dict(device_ms=dev_ms, launches=len(kernels) / reps)
+
+
+def k2_levels(data, A64, dev) -> list:
+    """Phase 8, continued: K2 against its plain version at each level of
+    config 4's hierarchy (f32) and on A64 (f64), with its times, bound
+    and launches per apply beside the plain route's and the BSR
+    product's."""
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.ops import block_spmv
+
+    gen = torch.Generator(device=dev).manual_seed(1888)
+    out = []
+    cases = [(f"level {l} {b.mesh.n_elements}e/p{b.bucket_degrees[0]}", M)
+             for l, (b, M) in enumerate(zip(data.bases, data.matrices))]
+    for tag, M in cases[::-1] + [("A64", A64)]:
+        dtype = next(iter(M.values.values())).dtype
+        x = {p: torch.randn((n, M.bc(p)), generator=gen, dtype=dtype,
+                            device=dev)
+             for p, n in M.pattern.col_sizes.items()}
+        n0 = block_spmv.launches
+        yk = bm.matvec(M, x)
+        launched = block_spmv.launches - n0
+        yp = bm.plain_matvec(M, x)
+        torch.cuda.synchronize()
+        err = max(float((yk[p] - yp[p]).abs().max()) for p in yk)
+        scale = max(float(yp[p].abs().max()) for p in yp)
+        tol = TOL_KERNEL if dtype == torch.float32 else 1e-12
+        shapes = sorted({tuple(v.shape[1:]) for v in M.values.values()})
+        blocks = sum(v.shape[0] for v in M.values.values())
+        ok = all(bool(torch.isfinite(v).all()) for v in yk.values()) \
+            and err <= tol * scale and launched == len(M.values)
+        print(f"K2-vs-plain {tag} {str(dtype)[6:]} blocks={blocks} "
+              f"block_shapes={shapes} max_abs_err={err:.3e} "
+              f"rel={err / scale:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version at "
+                                 f"{tag}: rel {err / scale:.3e}, "
+                                 f"{launched} launches")
+        again = bm.matvec(M, x)
+        torch.cuda.synchronize()
+        if not all(torch.equal(again[p], yk[p]) for p in yk):
+            raise AssertionError(f"K2 at {tag}: two applies differ")
+        ms = float(np.median(event_times(lambda: bm.matvec(M, x), 30)))
+        plain_ms = float(np.median(event_times(
+            lambda: bm.plain_matvec(M, x), 30)))
+        prof = k2_profile(lambda: bm.matvec(M, x), len(M.values))
+        prof_plain = k2_profile(lambda: bm.plain_matvec(M, x))
+        bound, bound_by = k2_bound(M)
+        lib, why = bsr_spmv_ms(M, x, yk, tol)
+        dev_ms = prof["device_ms"]
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
+        print(f"K2-time {tag} {str(dtype)[6:]}: events_ms={ms:.4f} "
+              f"device_ms={fmt(dev_ms)} launches_per_apply="
+              f"{prof['launches']} bound_ms={bound:.4f} ({bound_by}) "
+              f"share_of_bound events={bound / ms:.3f} device="
+              + ("not measured" if dev_ms is None else f"{bound / dev_ms:.3f}")
+              + f"; plain (gather+bmm+zero+index_add_) events_ms="
+              f"{plain_ms:.4f} device_ms={fmt(prof_plain['device_ms'])} "
+              f"launches_per_apply={prof_plain['launches']}; library_ms "
+              "(BSR) " + (fmt(lib) if lib is not None else f"refused ({why})"),
+              flush=True)
+        out.append(dict(tag=tag, dtype=str(dtype), ms=ms, device_ms=dev_ms,
+                        plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=bound_by, library_ms=lib,
+                        max_abs_err=err))
+        yk = yp = again = x = None
+    torch.cuda.empty_cache()
+    return out
 
 
 def mf_elasticity_apply(basis, plan, A64, A32, dev):
@@ -3654,7 +3849,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from hpdg_tpu_torch.ops import uniform_stencil
+        from hpdg_tpu_torch.ops import block_spmv, nvcc, uniform_stencil
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -3672,15 +3867,20 @@ def main() -> int:
         window_probe(dev)
         return 0
 
-    # ---- phase 2: build ----
+    # ---- phase 2: build (one nvcc per source, all at once) ----
     t0 = time.perf_counter()
+    sources = (uniform_stencil.SOURCE, block_spmv.SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(nvcc.load, sources))
     uniform_stencil.build()
-    print(f"build K1 ({uniform_stencil.SOURCE.name} -> "
-          f"{uniform_stencil.library_path().name}): "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    log = f"{uniform_stencil.library_path()}.log"
-    if os.path.exists(log):
-        print(open(log).read().strip(), flush=True)
+    block_spmv.build()
+    print(f"build K1 and K2 in parallel: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for src in sources:
+        log = f"{nvcc.library_path(src)}.log"
+        print(f"{src.name} -> {nvcc.library_path(src).name}", flush=True)
+        if os.path.exists(log):
+            print(open(log).read().strip(), flush=True)
     for bs in (125, 27, 8, 64):
         print(f"K1 {uniform_stencil.kernel_layout(bs)[0]} (bs={bs}): "
               f"{uniform_stencil.occupancy(bs)} resident blocks per SM",
@@ -3760,6 +3960,7 @@ def main() -> int:
     if "jax" in sys.modules or "hpdg_tpu" in sys.modules:
         raise AssertionError("the port imported jax or hpdg_tpu")
     t4 = timing[((32, 32, 32), 4)]
+    k2p2 = box["k2"][0]  # the p=2 level, f32: the cycle's largest apply
     summary = {"kernels": [{
         "name": "uniform_stencil",
         "route": "cuda",
@@ -3773,6 +3974,20 @@ def main() -> int:
         "bound_ms": t4["bound_ms"],
         "bound_by": t4["bound_by"],
         "library_ms": t4["library_ms"],
+    }, {
+        "name": "block_spmv",
+        "route": "cuda",
+        "source": "hpdg_tpu_torch/csrc/block_spmv.cu",
+        "replaces": "none (hpdg_tpu/linalg/blockmatrix.py:102 matvec, XLA "
+                    "einsum + segment_sum)",
+        "launches": box["k2_launches"],
+        "graph_launches": box["k2_chain"],
+        "max_abs_err": k2p2["max_abs_err"],
+        "ms": k2p2["ms"],
+        "plain_ms": k2p2["plain_ms"],
+        "bound_ms": k2p2["bound_ms"],
+        "bound_by": k2p2["bound_by"],
+        "library_ms": k2p2["library_ms"],
     }]}
     print(smi(), flush=True)
     print(json.dumps(summary), flush=True)

@@ -5,8 +5,12 @@ entry is a dense block of ``ncomp (p_i+1)^d x ncomp (p_j+1)^d`` values,
 with the blocks of each (row-degree, col-degree) pair in one dense
 ``[nnz, br, bc]`` tensor.  ``block_shape = (ncomp_row, ncomp_col)`` is
 ``(1, 1)`` for scalar problems and ``(d, d)`` for elasticity (dofs
-component-major inside a block).  The pattern is host-side numpy; SpMV
-is a batched ``bmm`` plus an ``index_add_`` scatter.
+component-major inside a block).  The pattern is host-side numpy.
+SpMV (:func:`matvec`) on the card is K2, the hand-written kernel of
+:mod:`hpdg_tpu_torch.ops.block_spmv`, one launch per bucket through a
+row-sorted table built once per pattern and device
+(:meth:`BlockSparseMatrix.spmv_table`); on the CPU it is the kernel's
+plain version, a batched ``bmm`` plus an ``index_add_`` scatter.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from hpdg_tpu_torch import device as dev
+from hpdg_tpu_torch.ops import block_spmv
 
 
 class BlockPattern:
@@ -94,6 +99,8 @@ class BlockSparseMatrix:
     block_shape: tuple = (1, 1)  # per-dof components (rows, cols)
     # (key, device) -> (rows, cols) as int64 tensors on that device
     _index: dict = field(default_factory=dict, repr=False, compare=False)
+    # (key, device) -> K2's row-sorted table on that device
+    _spmv: dict = field(default_factory=dict, repr=False, compare=False)
 
     def br(self, p: int) -> int:
         return (p + 1) ** self.dim * self.block_shape[0]
@@ -109,6 +116,22 @@ class BlockSparseMatrix:
                 torch.as_tensor(cols, dtype=torch.int64, device=device))
         return self._index[(key, device)]
 
+    def spmv_table(self, key, device) -> dict:
+        """K2's table of bucket ``key``: ``row_ptr``, ``slot`` and ``col``
+        (the blocks' columns in slot order) as int32 tensors on
+        ``device``, and the most blocks of one row.  The values keep
+        their slot order: the kernel reads them through ``slot``."""
+        if (key, device) not in self._spmv:
+            rows, cols = self.pattern.entries[key]
+            row_ptr, slot = block_spmv.row_table(
+                rows, self.pattern.row_sizes[key[0]])
+            i32 = lambda a: torch.as_tensor(  # noqa: E731
+                a, dtype=torch.int32, device=device)
+            self._spmv[(key, device)] = dict(
+                row_ptr=i32(row_ptr), slot=i32(slot), col=i32(cols[slot]),
+                max_row_nnz=int(np.diff(row_ptr).max(initial=0)))
+        return self._spmv[(key, device)]
+
 
 def zeros_values(pattern: BlockPattern, dim: int, block_shape=(1, 1),
                  dtype=torch.float64, device=None) -> dict:
@@ -123,17 +146,29 @@ def zeros_values(pattern: BlockPattern, dim: int, block_shape=(1, 1),
 
 
 def matvec(A: BlockSparseMatrix, x: dict) -> dict:
-    """y = A x for bucketed block vectors."""
+    """y = A x for bucketed block vectors: K2 on CUDA tensors (one launch
+    per bucket, later buckets of a row bucket adding into its y),
+    :func:`plain_matvec` on CPU tensors."""
+    if not any(v.device.type == "cuda" for v in A.values.values()):
+        return plain_matvec(A, x)
+    out = {}
+    for (pr, pc) in A.pattern.entries:
+        vals = A.values[(pr, pc)]
+        out[pr] = block_spmv.launch(
+            vals, x[pc], A.spmv_table((pr, pc), vals.device), out.get(pr))
+    return out
+
+
+def plain_matvec(A: BlockSparseMatrix, x: dict) -> dict:
+    """K2's plain version on any device: per bucket a gather, a batched
+    ``bmm``, a zero fill and an ``index_add_`` (the port's route on the
+    card before K2)."""
     out = {}
     for (pr, pc) in A.pattern.entries:
         vals = A.values[(pr, pc)]
         rows, cols = A.index((pr, pc), vals.device)
-        contrib = torch.bmm(vals, x[pc][cols].unsqueeze(-1)).squeeze(-1)
-        y = torch.zeros((A.pattern.row_sizes[pr], vals.shape[1]),
-                        dtype=vals.dtype, device=vals.device)
-        # several blocks of a row land on the same output row: index_add_
-        # sums them (the reference's segment_sum)
-        y.index_add_(0, rows, contrib)
+        y = block_spmv.plain(vals, x[pc], rows, cols,
+                             A.pattern.row_sizes[pr])
         out[pr] = out[pr] + y if pr in out else y
     return out
 

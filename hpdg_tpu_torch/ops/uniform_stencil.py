@@ -23,12 +23,7 @@ the two.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -38,12 +33,9 @@ from hpdg_tpu_torch.basis.dgbasis import DGBasis
 from hpdg_tpu_torch.matrixfree.uniform import (StencilTables, _lattice_shape,
                                                stencil_tables,
                                                uniform_sipg_operator)
+from hpdg_tpu_torch.ops import nvcc
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "uniform_stencil.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+SOURCE = nvcc.CSRC / "uniform_stencil.cu"
 
 # mirror the CUDA source (checked against it at load)
 INSTANTIATIONS = ("gemm125", "small27", "small8", "generic")
@@ -80,43 +72,13 @@ def tile_order(products: int, count: int) -> tuple:
     return count > 32, -products * -(-count // 32)
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin): the CUDA kernel cannot "
-                           "be built")
-    return path
-
-
-def library_path() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libuniform_stencil_{tag}.so"
-
-
 def build() -> ctypes.CDLL:
-    """Compile the kernel (once per source content) and load it.
-
-    The compiler's output (``-Xptxas=-v``: registers, shared memory,
-    spills) is kept beside the library as ``<lib>.log``.
-    """
+    """Compile the kernel (once per source content) and load it
+    (:func:`hpdg_tpu_torch.ops.nvcc.load`)."""
     global _lib
     if _lib is not None:
         return _lib
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=600)
-        Path(f"{so}.log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stderr[-4000:]}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = nvcc.load(SOURCE)
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     lib.hpdg_uniform_stencil_f32.argtypes = [ptr] * 8 + [cint] * 5 + [ptr]
     lib.hpdg_uniform_stencil_f32.restype = cint
