@@ -29,7 +29,11 @@ Phases (any failure ends the run with a nonzero exit code):
    ``blockmatrix.matvec`` against ``plain_matvec`` in f64 (1e-12 of
    max|y|) and f32 (1e-5), with K2 launched once per bucket, and again
    on copies of the values that are not 16-byte aligned (rows of 648
-   single loads: K2's column tiles);
+   single loads: K2's column tiles); then each bucket alone in f32 and
+   f64, and 4^3 p=4 elasticity (64 block rows of 375): K2's event ms
+   (and profiler device ms in f32), bound and share, the plain
+   version's and the BSR product's ms, and K2's launch geometry (wide
+   block rows split over thread blocks where they are few);
 4. the verified 3D SIPG p=4 hp-multigrid solve at 12^3 (216,000 dofs)
    and 32^3 (4,096,000 dofs): f32 V-cycle chains, f64 anchors on the
    card, one f64 verification on the host; asserts verified <= 1e-8,
@@ -136,8 +140,11 @@ Phases (any failure ends the run with a nonzero exit code):
    ``plain_matvec`` on every level of phase 11's f32 hierarchy (16 x 16
    blocks at p=3, 4 x 4 at p=1) and on A64 (f64), within 1e-5 of
    max|y| (f32) and 1e-12 (f64), one launch per apply, two applies
-   bitwise equal; events and device ms, bound, launches per apply, the
-   plain version's and the BSR product's ms;
+   bitwise equal; on the f32 levels with rows of at most 64 bytes (K2's
+   narrow kernel: 16 x 16 and 4 x 4), the output bitwise equal to
+   ``block_spmv.emulate``, the summation order in numpy; events and
+   device ms, bound, launches per apply, the plain version's and the BSR
+   product's ms;
 
 12. BASELINE config 3 as ``examples/adaptive_lshape.py`` runs it, at
    ``lshape(16)`` refined 3 times (196,608 dofs at p=1): six rounds of
@@ -458,6 +465,40 @@ def wide_blocks(dev):
                 raise AssertionError(f"3b: {dtype} offset {offset} matvec "
                                      f"rel {err / scale:.3e}, {launched} K2 "
                                      f"launches")
+    # each bucket alone (aligned), then 4^3 at p=4: 64 block rows of 375
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        A = bm.BlockSparseMatrix(
+            A64.pattern, A64.dim,
+            {k: v.to(dtype) for k, v in A64.values.items()}, A64.block_shape)
+        for key in sorted(shapes):
+            k2_row(f"3b 2^3 bucket {key} {shapes[key][0]}x{shapes[key][1]}",
+                   one_bucket(A, key), gen, reps=10,
+                   profile=dtype == torch.float32, plain_profile=False)
+    A = B64 = None
+    basis = DGBasis(hm.structured((4, 4, 4)), np.full(64, 4, np.int32))
+    B64 = assemble_elasticity(basis, mu=1.0, lam=1.0, penalty=4.0,
+                              dirichlet=True, device=dev)
+    for dtype in (torch.float32, torch.float64):
+        B = bm.BlockSparseMatrix(
+            B64.pattern, B64.dim,
+            {k: v.to(dtype) for k, v in B64.values.items()}, B64.block_shape)
+        k2_row("3b 4^3 p=4 (4, 4) 375x375", B, gen, reps=10,
+               profile=dtype == torch.float32, plain_profile=False)
+    B = B64 = None
+    torch.cuda.empty_cache()
+    print(f"3b bucket rows: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def one_bucket(M, key):
+    """The bucket ``key`` of M as a matrix of its own (the same tensors)."""
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    pr, pc = key
+    pat = bm.BlockPattern({pr: M.pattern.row_sizes[pr]},
+                          {pc: M.pattern.col_sizes[pc]},
+                          {key: M.pattern.entries[key]}, diag_first=False)
+    return bm.BlockSparseMatrix(pat, M.dim, {key: M.values[key]},
+                                M.block_shape)
 
 
 def check_kernel(dev):
@@ -1578,69 +1619,104 @@ def k2_levels(data, A64, dev, prefix: str = "") -> list:
     """Phase 8, continued (and 11b with ``prefix`` "config 5 "): K2
     against its plain version at each level of config 4's (config 5's)
     hierarchy (f32) and on A64 (f64), with its times, bound and launches
-    per apply beside the plain route's and the BSR product's."""
-    from hpdg_tpu_torch.linalg import blockmatrix as bm
-    from hpdg_tpu_torch.ops import block_spmv
-
+    per apply beside the plain route's and the BSR product's
+    (:func:`k2_row`)."""
     gen = torch.Generator(device=dev).manual_seed(1888)
-    out = []
     cases = [(f"{prefix}level {l} {b.mesh.n_elements}e/"
               f"p{b.bucket_degrees[0]}", M)
              for l, (b, M) in enumerate(zip(data.bases, data.matrices))]
-    for tag, M in cases[::-1] + [(f"{prefix}A64", A64)]:
-        dtype = next(iter(M.values.values())).dtype
+    out = [k2_row(tag, M, gen)
+           for tag, M in cases[::-1] + [(f"{prefix}A64", A64)]]
+    torch.cuda.empty_cache()
+    return out
+
+
+def k2_row(tag, M, gen, reps: int = 30, profile: bool = True,
+           plain_profile: bool = True, x: dict | None = None) -> dict:
+    """K2 on M against its plain version (f32 within ``TOL_KERNEL`` of
+    max|y|, f64 within 1e-12, one launch per bucket), two applies
+    bitwise equal and, where every bucket takes K2's narrow kernel (f32
+    rows of at most 64 bytes), bitwise equal to ``block_spmv.emulate``;
+    then its event ms (median of ``reps``), profiler device ms and
+    launches per apply (with ``profile``), bound and share, the plain
+    version's event ms (and device ms with ``plain_profile``), the BSR
+    product's ms and K2's launch geometry.  ``x``: the vector (else drawn
+    from ``gen``)."""
+    from hpdg_tpu_torch.linalg import blockmatrix as bm
+    from hpdg_tpu_torch.ops import block_spmv
+
+    v0 = next(iter(M.values.values()))
+    dtype, dev = v0.dtype, v0.device
+    if x is None:
         x = {p: torch.randn((n, M.bc(p)), generator=gen, dtype=dtype,
                             device=dev)
              for p, n in M.pattern.col_sizes.items()}
-        n0 = block_spmv.launches
-        yk = bm.matvec(M, x)
-        launched = block_spmv.launches - n0
-        yp = bm.plain_matvec(M, x)
-        torch.cuda.synchronize()
-        err = max(float((yk[p] - yp[p]).abs().max()) for p in yk)
-        scale = max(float(yp[p].abs().max()) for p in yp)
-        tol = TOL_KERNEL if dtype == torch.float32 else 1e-12
-        shapes = sorted({tuple(v.shape[1:]) for v in M.values.values()})
-        blocks = sum(v.shape[0] for v in M.values.values())
-        ok = all(bool(torch.isfinite(v).all()) for v in yk.values()) \
-            and err <= tol * scale and launched == len(M.values)
-        print(f"K2-vs-plain {tag} {str(dtype)[6:]} blocks={blocks} "
-              f"block_shapes={shapes} max_abs_err={err:.3e} "
-              f"rel={err / scale:.3e} {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise AssertionError(f"K2 disagrees with its plain version at "
-                                 f"{tag}: rel {err / scale:.3e}, "
-                                 f"{launched} launches")
-        again = bm.matvec(M, x)
-        torch.cuda.synchronize()
-        if not all(torch.equal(again[p], yk[p]) for p in yk):
-            raise AssertionError(f"K2 at {tag}: two applies differ")
-        ms = float(np.median(event_times(lambda: bm.matvec(M, x), 30)))
-        plain_ms = float(np.median(event_times(
-            lambda: bm.plain_matvec(M, x), 30)))
-        prof = k2_profile(lambda: bm.matvec(M, x), len(M.values))
-        prof_plain = k2_profile(lambda: bm.plain_matvec(M, x))
-        bound, bound_by = k2_bound(M)
-        lib, why = bsr_spmv_ms(M, x, yk, tol)
-        dev_ms = prof["device_ms"]
-        fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
-        print(f"K2-time {tag} {str(dtype)[6:]}: events_ms={ms:.4f} "
-              f"device_ms={fmt(dev_ms)} launches_per_apply="
-              f"{prof['launches']} bound_ms={bound:.4f} ({bound_by}) "
-              f"share_of_bound events={bound / ms:.3f} device="
-              + ("not measured" if dev_ms is None else f"{bound / dev_ms:.3f}")
-              + f"; plain (gather+bmm+zero+index_add_) events_ms="
-              f"{plain_ms:.4f} device_ms={fmt(prof_plain['device_ms'])} "
-              f"launches_per_apply={prof_plain['launches']}; library_ms "
-              "(BSR) " + (fmt(lib) if lib is not None else f"refused ({why})"),
-              flush=True)
-        out.append(dict(tag=tag, dtype=str(dtype), ms=ms, device_ms=dev_ms,
-                        plain_ms=plain_ms, bound_ms=bound,
-                        bound_by=bound_by, library_ms=lib,
-                        max_abs_err=err))
-        yk = yp = again = x = None
-    torch.cuda.empty_cache()
-    return out
+    n0 = block_spmv.launches
+    yk = bm.matvec(M, x)
+    launched = block_spmv.launches - n0
+    yp = bm.plain_matvec(M, x)
+    torch.cuda.synchronize()
+    err, scale = _max_gap(yp, yk)
+    tol = TOL_KERNEL if dtype == torch.float32 else 1e-12
+    shapes = sorted({tuple(v.shape[1:]) for v in M.values.values()})
+    blocks = sum(v.shape[0] for v in M.values.values())
+    ok = all(bool(torch.isfinite(v).all()) for v in yk.values()) \
+        and err <= tol * scale and launched == len(M.values)
+    print(f"K2-vs-plain {tag} {str(dtype)[6:]} blocks={blocks} "
+          f"block_shapes={shapes} max_abs_err={err:.3e} "
+          f"rel={err / scale:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"K2 disagrees with its plain version at "
+                             f"{tag}: rel {err / scale:.3e}, "
+                             f"{launched} launches")
+    again = bm.matvec(M, x)
+    torch.cuda.synchronize()
+    if not all(torch.equal(again[p], yk[p]) for p in yk):
+        raise AssertionError(f"K2 at {tag}: two applies differ")
+    layouts = [block_spmv.layout(
+        dtype, v.shape[1], v.shape[2], v.data_ptr() % 16 == 0,
+        M.pattern.row_sizes[k[0]], M.spmv_table(k, dev)["max_row_nnz"],
+        block_spmv.sm_count(dev)) for k, v in M.values.items()]
+    bitwise = None
+    if dtype == torch.float32 and all(L["narrow"] for L in layouts):
+        want = block_spmv.emulate_matvec(M, x)
+        bitwise = all(np.array_equal(
+            yk[p].cpu().numpy().view(np.int32), want[p].view(np.int32))
+            for p in yk)
+        print(f"K2-vs-emulation {tag}: f32 output bitwise "
+              f"{'equal' if bitwise else 'DIFFERENT'}", flush=True)
+        if not bitwise:
+            raise AssertionError(f"K2 at {tag}: not the emulated order")
+    ms = float(np.median(event_times(lambda: bm.matvec(M, x), reps)))
+    plain_ms = float(np.median(event_times(
+        lambda: bm.plain_matvec(M, x), reps)))
+    prof = (k2_profile(lambda: bm.matvec(M, x), len(M.values)) if profile
+            else dict(device_ms=None, launches=launched))
+    prof_plain = (k2_profile(lambda: bm.plain_matvec(M, x)) if plain_profile
+                  else dict(device_ms=None, launches="not measured"))
+    bound, bound_by = k2_bound(M)
+    lib, why = bsr_spmv_ms(M, x, yk, tol)
+    dev_ms = prof["device_ms"]
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
+    geometry = ", ".join(
+        f"narrow gw={L['gw']} grid={L['grid']}" if L["narrow"]
+        else f"wide shape={L['shape']} slices={L['slices']} grid={L['grid']}"
+        for L in layouts)
+    print(f"K2-time {tag} {str(dtype)[6:]}: events_ms={ms:.4f} "
+          f"device_ms={fmt(dev_ms)} launches_per_apply="
+          f"{prof['launches']} bound_ms={bound:.4f} ({bound_by}) "
+          f"share_of_bound events={bound / ms:.3f} device="
+          + ("not measured" if dev_ms is None else f"{bound / dev_ms:.3f}")
+          + f"; plain (gather+bmm+zero+index_add_) events_ms="
+          f"{plain_ms:.4f} ({plain_ms / ms:.2f} x K2) device_ms="
+          f"{fmt(prof_plain['device_ms'])} launches_per_apply="
+          f"{prof_plain['launches']}; library_ms (BSR) "
+          + (fmt(lib) if lib is not None else f"refused ({why})")
+          + f"; K2 geometry {geometry}", flush=True)
+    return dict(tag=tag, dtype=str(dtype), ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=lib, max_abs_err=err, bitwise_emulation=bitwise,
+                layouts=layouts)
 
 
 def mf_elasticity_apply(basis, plan, A64, A32, dev):
@@ -4008,7 +4084,8 @@ def main() -> int:
     obstacle = obstacle_solve(dev)
 
     # ---- phase 11b: K2 at config 5's shapes ----
-    k2_levels(obstacle["data"], obstacle["A64"], dev, prefix="config 5 ")
+    k2_config5 = k2_levels(obstacle["data"], obstacle["A64"], dev,
+                           prefix="config 5 ")
     del obstacle
     torch.cuda.empty_cache()
 
@@ -4085,6 +4162,12 @@ def main() -> int:
         "bound_ms": k2p2["bound_ms"],
         "bound_by": k2p2["bound_by"],
         "library_ms": k2p2["library_ms"],
+        # config 5's largest p=1 level (81,408 blocks of 4 x 4, f32)
+        "config5_16384e_p1": next(
+            {k: r[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms",
+                               "bitwise_emulation")}
+            for r in k2_config5 if "16384e/p1" in r["tag"]),
     }]}
     print(smi(), flush=True)
     print(json.dumps(summary), flush=True)

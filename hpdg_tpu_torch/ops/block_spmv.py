@@ -9,7 +9,13 @@ It replaces no TPU kernel: the reference computes the product in XLA
 once, in the pattern's slot order, through a row-sorted table that the
 host builds once per pattern (:func:`row_table`), and keeps each output
 row's sum in registers: no atomics, and repeated applies are bitwise
-equal.
+equal.  Rows of at most 64 bytes take its narrow kernel (one lane group
+of 1 to 16 lanes per matrix row, x read from L2), wider rows its wide
+kernel (x staged in shared memory; a block row split over several
+thread blocks where the bucket has few of them).  :func:`layout` mirrors
+the launch geometry and :func:`coverage` checks that it sums every row
+once; :func:`emulate` repeats the kernel's summation order in numpy,
+which its f32 output equals bit for bit.
 
 It is built with ``nvcc`` for ``sm_90a`` at first use
 (:mod:`hpdg_tpu_torch.ops.nvcc`) and bound with ctypes.  :func:`launch`
@@ -35,6 +41,20 @@ SOURCE = nvcc.CSRC / "block_spmv.cu"
 MAX_BLOCK = 6144
 DTYPES = {torch.float32: 0, torch.float64: 1}
 
+# the kernel's launch constants (csrc/block_spmv.cu)
+SMEM_BYTES = 48 * 1024
+CTA_THREADS = 256
+NARROW_THREADS = 128
+NARROW_BYTES = 64
+CTAS_PER_SM = 2
+# the wide kernel's (GW, CPL, TILED) instantiations, in the source's order
+SHAPES = ((8, 1, 0), (16, 1, 0), (32, 1, 0), (32, 2, 0), (32, 3, 0),
+          (32, 4, 0), (32, 8, 0), (32, 12, 0), (32, 12, 1))
+# hpdg_block_spmv_layout's fields, in order
+LAYOUT_FIELDS = ("narrow", "vec", "gw", "shape", "nwr", "rows_per_cta",
+                 "threads", "chunk", "smem", "passes", "pp", "slices",
+                 "grid")
+
 launches = 0
 captured = 0
 _lib = None  # the loaded shared library (one per process)
@@ -49,8 +69,10 @@ def build() -> ctypes.CDLL:
         return _lib
     lib = nvcc.load(SOURCE)
     ptr, cint = ctypes.c_void_p, ctypes.c_int
-    lib.hpdg_block_spmv.argtypes = [cint] + [ptr] * 6 + [cint] * 5 + [ptr]
+    lib.hpdg_block_spmv.argtypes = [cint] + [ptr] * 6 + [cint] * 6 + [ptr]
     lib.hpdg_block_spmv.restype = cint
+    lib.hpdg_block_spmv_layout.argtypes = [cint] * 7 + [ptr]
+    lib.hpdg_block_spmv_layout.restype = cint
     lib.hpdg_block_spmv_prepare.argtypes = []
     lib.hpdg_block_spmv_prepare.restype = cint
     rc = lib.hpdg_block_spmv_prepare()
@@ -69,6 +91,199 @@ def check(dtype: torch.dtype, br: int, bc: int):
     if not (1 <= br <= MAX_BLOCK and 1 <= bc <= MAX_BLOCK):
         raise ValueError(f"block SpMV kernel takes blocks of 1 to "
                          f"{MAX_BLOCK} rows and columns, got {br} x {bc}")
+
+
+def rows_per_group(cpl: int) -> int:
+    """Rows a wide-kernel lane group carries per pass."""
+    return 1 if cpl >= 8 else 2 if cpl >= 4 else 4
+
+
+def layout(dtype: torch.dtype, br: int, bc: int, aligned: bool,
+           n_rows: int, max_row_nnz: int, sms: int) -> dict:
+    """The kernel's launch geometry for one bucket (``make_layout`` in
+    ``csrc/block_spmv.cu``, field by field: :data:`LAYOUT_FIELDS`), on a
+    card of ``sms`` SMs; ``aligned``: the values are 16-byte aligned.
+
+    Rows of at most :data:`NARROW_BYTES` take the narrow kernel: a group
+    of ``gw`` lanes (the row's load units rounded up to a power of two)
+    per (block row, matrix row), ``grid`` thread blocks of
+    :data:`NARROW_THREADS`.  Wider rows take the wide kernel's
+    instantiation ``shape``: ``nwr`` warps per block row,
+    ``rows_per_cta`` block rows per thread block, ``passes`` passes of
+    its groups over a block row's matrix rows, ``pp`` of them in each of
+    ``slices`` thread blocks per block row (one slice unless the bucket
+    has fewer thread blocks than :data:`CTAS_PER_SM` per SM)."""
+    check(dtype, br, bc)
+    size = 4 if dtype == torch.float32 else 8
+    wide = 16 // size
+    vec = int(bool(aligned) and bc % wide == 0)
+    units = -(-bc // wide) if vec else bc
+    L = dict.fromkeys(LAYOUT_FIELDS, 0)
+    L.update(vec=vec, slices=1)
+    if bc * size <= NARROW_BYTES:
+        gw = 1
+        while gw < units:
+            gw *= 2
+        L.update(narrow=1, gw=gw, shape=-1, threads=NARROW_THREADS,
+                 grid=-(-n_rows * br * gw // NARROW_THREADS))
+        return L
+    gw = 8 if units <= 8 else 16 if units <= 16 else 32
+    need = -(-units // gw)
+    shape = next((s for s, (g, c, t) in enumerate(SHAPES[:-1])
+                  if g == gw and c >= need), len(SHAPES) - 1)
+    rpg = rows_per_group(SHAPES[shape][1])
+    per_warp = (32 // gw) * rpg
+    nwr = min(CTA_THREADS // 32, max(1, -(-br // per_warp)))
+    rows_per_cta = CTA_THREADS // 32 if nwr == 1 else 1
+    fit = SMEM_BYTES // (rows_per_cta * bc * size)
+    chunk = max(1, min(max(1, max_row_nnz), fit))
+    groups = nwr * (32 // gw)
+    passes = -(-(-(-br // groups)) // rpg)
+    pp, slices = passes, 1
+    ctas = -(-n_rows // rows_per_cta)
+    if rows_per_cta == 1 and 0 < ctas < CTAS_PER_SM * sms:
+        want = min(passes, -(-CTAS_PER_SM * sms // ctas))
+        pp = max(1, passes // want)
+        slices = -(-passes // pp)
+    L.update(gw=gw, shape=shape, nwr=nwr, rows_per_cta=rows_per_cta,
+             threads=32 * nwr * rows_per_cta, chunk=chunk,
+             smem=rows_per_cta * chunk * bc * size, passes=passes, pp=pp,
+             slices=slices, grid=ctas * slices)
+    return L
+
+
+def coverage(L: dict, n_rows: int, br: int) -> np.ndarray:
+    """How many times the launch of geometry ``L`` writes each output row:
+    ``[n_rows, br]`` counts (every entry 1 for a sound geometry), from
+    the thread indices as the kernel maps them."""
+    count = np.zeros(n_rows * br, dtype=np.int64)
+    t = np.arange(L["grid"] * L["threads"], dtype=np.int64)
+    cta, tid = t // L["threads"], t % L["threads"]
+    gw = L["gw"]
+    if L["narrow"]:
+        gid = t // gw
+        keep = (tid % gw == 0) & (gid // br < n_rows)
+        count += np.bincount(gid[keep], minlength=n_rows * br)
+        return count.reshape(n_rows, br)
+    nwr, slices = L["nwr"], L["slices"]
+    warp, lane = tid // 32, tid % 32
+    rb, wr = warp // nwr, warp % nwr
+    row = (cta // slices) * (L["threads"] // (32 * nwr)) + rb
+    slice_ = cta % slices
+    groups = nwr * (32 // gw)
+    g, gl = wr * (32 // gw) + lane // gw, lane % gw
+    rpg = rows_per_group(SHAPES[L["shape"]][1])
+    for k in range(L["pp"]):
+        p = slice_ * L["pp"] + k
+        for q in range(rpg):
+            i = g + groups * (p * rpg + q)
+            keep = ((row < n_rows) & (gl == 0) & (i < br)
+                    & (p < L["passes"]))
+            count += np.bincount(row[keep] * br + i[keep],
+                                 minlength=n_rows * br)
+    return count.reshape(n_rows, br)
+
+
+def lanes(dtype: torch.dtype, bc: int, aligned: bool) -> tuple:
+    """``(W, GW, CPL, TILE)`` of a row of ``bc`` columns: lane ``l`` of
+    its group adds the columns ``t0 + W (l + GW c) + w`` (tiles ``t0`` of
+    ``TILE`` columns, then ``c < CPL``, then ``w < W``); ``GW`` is the
+    kernel's group width (narrow or wide), ``TILE`` is ``bc`` where the
+    row is one tile."""
+    L = layout(dtype, 1, bc, aligned, 1, 1, 1)
+    W = 16 // (4 if dtype == torch.float32 else 8) if L["vec"] else 1
+    if L["narrow"]:
+        return W, L["gw"], 1, bc
+    gw, cpl, tiled = SHAPES[L["shape"]]
+    return W, gw, cpl, W * gw * cpl if tiled else bc
+
+
+def emulate(vals: np.ndarray, x: np.ndarray, row_ptr: np.ndarray,
+            slot: np.ndarray, col: np.ndarray, aligned: bool,
+            y: np.ndarray | None = None, gw: int | None = None,
+            rounded: bool = True) -> np.ndarray:
+    """The kernel's sums of one bucket in numpy: each lane's f64 sum of
+    its columns' products (blocks in slot order, then tiles, ``c`` and
+    ``w``: :func:`lanes`), the group's XOR shuffle tree, then ``y +``
+    (with ``y``, the kernel's ``accumulate``) and the rounding to the
+    values' type (unless not ``rounded``: the f64 sums).  For f32 values
+    each product is exact in f64, as in the kernel's FMAs, so its output
+    equals this bit for bit; for f64 the kernel fuses each product into
+    its sum and this rounds it first.  ``gw`` replaces the group width
+    with a wider power of two (lanes past the row add zeros)."""
+    _, br, bc = vals.shape
+    n_rows = len(row_ptr) - 1
+    dtype = torch.float32 if vals.dtype == np.float32 else torch.float64
+    W, GW, CPL, TILE = lanes(dtype, bc, aligned)
+    GW = gw or GW
+    acc = np.zeros((n_rows, br, GW))
+    counts = np.diff(row_ptr)
+    for k in range(int(counts.max(initial=0))):
+        live = np.flatnonzero(counts > k)
+        at = row_ptr[live] + k
+        A = vals[slot[at]].astype(np.float64)
+        X = x[col[at]].astype(np.float64)
+        sub = acc[live]
+        for t0 in range(0, bc, TILE):
+            for c in range(CPL):
+                for w in range(W):
+                    J = t0 + W * (np.arange(GW) + GW * c) + w
+                    on = np.flatnonzero(J < bc)
+                    if len(on):
+                        sub[:, :, on] += A[:, :, J[on]] * X[:, None, J[on]]
+        acc[live] = sub
+    off = GW // 2
+    while off:
+        acc = acc + acc[:, :, np.arange(GW) ^ off]
+        off //= 2
+    out = acc[:, :, 0]
+    if y is not None:
+        out = np.asarray(y, dtype=np.float64) + out
+    return out.astype(vals.dtype) if rounded else out
+
+
+def emulate_matvec(A, x: dict, rounded: bool = True) -> dict:
+    """:func:`emulate` over the buckets of ``A`` (a ``BlockSparseMatrix``)
+    in ``matvec``'s order, later buckets of a row bucket adding into its
+    y; host numpy arrays.  The alignment of each bucket is its values'
+    own, so ``A`` and ``x`` are those the kernel is (or would be) given,
+    on any device."""
+    out = {}
+    for key in A.pattern.entries:
+        pr, pc = key
+        v = A.values[key]
+        t = A.spmv_table(key, torch.device("cpu"))
+        out[pr] = emulate(v.detach().cpu().numpy(),
+                          x[pc].detach().cpu().numpy(), t["row_ptr"].numpy(),
+                          t["slot"].numpy(), t["col"].numpy(),
+                          v.data_ptr() % 16 == 0, out.get(pr),
+                          rounded=rounded)
+    return out
+
+
+def card_layout(dtype: torch.dtype, br: int, bc: int, aligned: bool,
+                n_rows: int, max_row_nnz: int, sms: int) -> dict:
+    """The geometry the built kernel reports (``hpdg_block_spmv_layout``);
+    builds it, so needs ``nvcc``."""
+    check(dtype, br, bc)
+    out = (ctypes.c_int * len(LAYOUT_FIELDS))()
+    rc = build().hpdg_block_spmv_layout(DTYPES[dtype], br, bc, int(aligned),
+                                        n_rows, max_row_nnz, sms, out)
+    if rc != 0:
+        raise ValueError(f"block SpMV kernel: no layout for {br} x {bc}")
+    return dict(zip(LAYOUT_FIELDS, out))
+
+
+_sms = {}  # device index -> SM count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (the launch geometry splits wide
+    block rows by it)."""
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device.index]
 
 
 def row_table(rows: np.ndarray, n_rows: int) -> tuple:
@@ -136,7 +351,8 @@ def launch(vals: torch.Tensor, x: torch.Tensor, table: dict,
             DTYPES[vals.dtype], vals.data_ptr(), x.data_ptr(), y.data_ptr(),
             table["row_ptr"].data_ptr(), table["slot"].data_ptr(),
             table["col"].data_ptr(), n_rows, br, bc, table["max_row_nnz"],
-            accumulate, torch.cuda.current_stream(vals.device).cuda_stream)
+            accumulate, sm_count(vals.device),
+            torch.cuda.current_stream(vals.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"block SpMV kernel launch failed: CUDA error "
                            f"{rc} ({br} x {bc}, {vals.dtype})")

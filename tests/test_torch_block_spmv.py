@@ -17,7 +17,17 @@ On the CPU (no card, no nvcc):
   the kernel's wrapper refuses CPU tensors, f16 and blocks over 6144,
   and takes every bucket of 3D elasticity at p=3, 4, 5 and mixed 4/5
   (blocks of 192, 375 and 648), whose plain product equals the
-  kernel's traversal replayed in numpy.
+  kernel's traversal replayed in numpy;
+* the launch geometry's Python mirror (``block_spmv.layout``): at the
+  widths of configs 4 and 5 and of elasticity at p=3, 4, 5 and 4/5, in
+  f32 and f64, aligned or not, with many and few block rows, every
+  (block row, matrix row) is summed by exactly one lane group
+  (``block_spmv.coverage``), and the mapping takes the narrow kernel,
+  or splits a block row, where it should;
+* the numpy emulation of the kernel's summation order
+  (``block_spmv.emulate``) against ``plain_matvec`` in f64 (1e-13 of
+  max|y|), later buckets adding into y; and narrow groups (1-4 lanes)
+  giving the same f32 bits as groups of 8 or 16 lanes.
 
 On a card (``cuda`` marker; skipped here), in this file's other half,
 which imports no JAX:
@@ -33,7 +43,11 @@ repeated launches bitwise equal; a CUDA-graph capture and replay of
 wider than one lane group's loads (729 and 1029, and 648 not 16-byte
 aligned: K2's column tiles); the card's ``matvec`` of 3D elasticity at
 p=3, 4, 5 and mixed 4/5 against ``plain_matvec``, K2 launched once per
-bucket.
+bucket.  Then the redesigned mapping: K2's f32 output bitwise equal to
+``block_spmv.emulate`` at widths 4 to 1029 and 375 x 648, 16-byte
+aligned or not, with and without ``accumulate``; the launch geometry the
+built kernel reports equal to the Python mirror; narrow and split
+buckets captured in a CUDA graph and replayed, equal to eager.
 """
 
 import contextlib
@@ -293,6 +307,133 @@ def test_k2_takes_every_elasticity_width(case):
     assert_close(want, replay(A, x), 1e-13)
 
 
+# (dtype, br, bc, aligned, n_rows): the buckets of configs 4 and 5 and of
+# elasticity, with many block rows (the main path's levels have more) and
+# with fewer than two thread blocks per SM
+GEOMETRY = {
+    "config5_p1_4x4": (torch.float32, 4, 4, True, 1216),
+    "config5_p1_4x4_unaligned": (torch.float32, 4, 4, False, 300),
+    "config5_p3_16x16": (torch.float32, 16, 16, True, 700),
+    "config5_p3_16x16_unaligned": (torch.float32, 16, 16, False, 300),
+    "config5_A64_16x16": (torch.float64, 16, 16, True, 300),
+    "poisson3d_p1_8x8_f64": (torch.float64, 8, 8, False, 100),
+    "config4_p2_81x81": (torch.float32, 81, 81, True, 300),
+    "config4_p2_81x81_few": (torch.float32, 81, 81, True, 5),
+    "config4_p1_24x24": (torch.float32, 24, 24, True, 300),
+    "config4_A64_81x81": (torch.float64, 81, 81, True, 40),
+    "elasticity_p3_192": (torch.float32, 192, 192, True, 8),
+    "elasticity_p4_375": (torch.float32, 375, 375, True, 64),
+    "elasticity_p4_375_f64": (torch.float64, 375, 375, False, 4),
+    "elasticity_p5_648": (torch.float32, 648, 648, True, 4),
+    "elasticity_p5_648_unaligned": (torch.float32, 648, 648, False, 4),
+    "elasticity_p4_p5_375x648": (torch.float32, 375, 648, True, 4),
+    "elasticity_p4_p5_648x375": (torch.float64, 648, 375, False, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(GEOMETRY))
+def test_launch_geometry_sums_every_row_once(case):
+    dtype, br, bc, aligned, n_rows = GEOMETRY[case]
+    L = block_spmv.layout(dtype, br, bc, aligned, n_rows, 7, 132)
+    count = block_spmv.coverage(L, n_rows, br)
+    assert count.shape == (n_rows, br) and (count == 1).all()
+    narrow = bc * (4 if dtype == torch.float32 else 8) <= 64
+    assert L["narrow"] == narrow
+    if narrow:
+        assert L["gw"] <= 16 and L["grid"] * L["threads"] >= n_rows * br
+    elif L["rows_per_cta"] == 1 and n_rows < 2 * 132:
+        assert L["slices"] > 1 and L["grid"] >= min(
+            2 * 132, n_rows * L["passes"])
+    else:
+        assert L["slices"] == 1
+
+
+def test_launch_geometry_at_the_main_paths_levels():
+    """Config 5's levels take the narrow kernel, one lane a 4-wide row and
+    four a 16-wide one; config 4's levels keep the wide kernel's mapping,
+    unsplit; 2^3 elasticity at p=5 is split over thread blocks."""
+    f32, f64 = torch.float32, torch.float64
+    for n_rows in (16384, 4096, 1024, 256):
+        L = block_spmv.layout(f32, 4, 4, True, n_rows, 5, 132)
+        assert (L["narrow"], L["gw"]) == (1, 1)
+        assert L["grid"] == n_rows * 4 // 128 or n_rows * 4 < 128
+    L = block_spmv.layout(f32, 16, 16, True, 16384, 5, 132)
+    assert (L["narrow"], L["gw"], L["grid"]) == (1, 4, 16384 * 16 * 4 // 128)
+    L = block_spmv.layout(f64, 16, 16, True, 16384, 5, 132)
+    assert (L["narrow"], L["shape"], L["rows_per_cta"]) == (0, 0, 8)
+    for dtype, br, n_rows in ((f32, 81, 13824), (f32, 24, 13824),
+                              (f32, 24, 1728), (f64, 81, 13824)):
+        L = block_spmv.layout(dtype, br, br, True, n_rows, 7, 132)
+        assert (L["narrow"], L["slices"], L["grid"]) == (0, 1, n_rows)
+    L = block_spmv.layout(f32, 648, 648, True, 4, 4, 132)
+    assert L["slices"] * 4 >= 132 and L["grid"] == 4 * L["slices"]
+
+
+# (row sizes, col sizes, blocks per row, ncomp, dim, offset): blocks of
+# ncomp (p+1)^dim; offset 1: values not 16-byte aligned
+EMULATED = {
+    "bs4_poisson2d_p1": ({1: 60}, {1: 60}, 5, 1, 2, 0),
+    "bs4_unaligned": ({1: 60}, {1: 60}, 5, 1, 2, 1),
+    "bs16_poisson2d_p3": ({3: 40}, {3: 40}, 5, 1, 2, 0),
+    "bs16_unaligned": ({3: 40}, {3: 40}, 5, 1, 2, 1),
+    "bs8_poisson3d_p1": ({1: 50}, {1: 50}, 7, 1, 3, 0),
+    "rectangular_4_16_accumulate": ({1: 30, 3: 20}, {1: 25, 3: 31}, 4, 1, 2,
+                                    0),
+    "rectangular_24_81_accumulate": ({1: 20, 2: 15}, {1: 17, 2: 22}, 4, 3,
+                                     3, 1),
+    "bs648_elasticity_p5": ({5: 4}, {5: 4}, 3, 3, 3, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(EMULATED))
+def test_emulated_summation_order_matches_plain_matvec(case):
+    """``block_spmv.emulate``'s f64 sums (the kernel's order before its
+    rounding to f32) against the plain product in f64 on the same f32
+    values, 1e-13 of max|y|; its f32 output is those sums rounded."""
+    rs, cs, blocks, ncomp, dim, offset = EMULATED[case]
+    A = random_matrix(rs, cs, blocks, ncomp, dim, seed=len(case),
+                      dtype=torch.float32, offset=offset)
+    x = rand_x(A, 5, dtype=torch.float32)
+    A64 = bm.BlockSparseMatrix(
+        A.pattern, A.dim, {k: v.double() for k, v in A.values.items()},
+        A.block_shape)
+    want = {k: v.numpy() for k, v in bm.plain_matvec(
+        A64, {p: v.double() for p, v in x.items()}).items()}
+    sums = block_spmv.emulate_matvec(A, x, rounded=False)
+    assert_close(want, sums, 1e-13)
+    got = block_spmv.emulate_matvec(A, x)
+    assert all(got[p].dtype == np.float32 for p in got)
+    if len(A.pattern.entries) == len(A.pattern.row_sizes):
+        for p in got:  # one bucket per row bucket: one rounding
+            np.testing.assert_array_equal(got[p], sums[p].astype(np.float32))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("width", [4, 8, 12, 16])
+def test_narrow_groups_give_the_bits_of_eight_lane_groups(width, aligned):
+    """A narrow row's group of 1-16 lanes sums in the order of the wide
+    kernel's group of at least 8 (16 for 9-16 single loads): the lanes it
+    drops add zeros, so the f32 output keeps its bits."""
+    rng = np.random.default_rng(width)
+    n_rows, nnz = 40, 160
+    rows = np.sort(rng.integers(0, n_rows, nnz))
+    row_ptr, slot = block_spmv.row_table(rows, n_rows)
+    vals = rng.standard_normal((nnz, 5, width)).astype(np.float32)
+    x = rng.standard_normal((30, width)).astype(np.float32)
+    col = rng.integers(0, 30, nnz).astype(np.int32)
+    y0 = rng.standard_normal((n_rows, 5)).astype(np.float32)
+    W, gw, cpl, _ = block_spmv.lanes(torch.float32, width, aligned)
+    units = width // W
+    wide_gw = 8 if units <= 8 else 16
+    assert gw <= wide_gw
+    for y in (None, y0):
+        narrow = block_spmv.emulate(vals, x, row_ptr, slot, col, aligned, y)
+        wide = block_spmv.emulate(vals, x, row_ptr, slot, col, aligned, y,
+                                  gw=wide_gw)
+        np.testing.assert_array_equal(narrow.view(np.int32),
+                                      wide.view(np.int32))
+
+
 def test_row_table_refuses_rows_outside_the_bucket():
     with pytest.raises(ValueError, match="outside"):
         block_spmv.row_table(np.array([0, 4]), 3)
@@ -336,6 +477,11 @@ CARD_CASES = {
     "bs729_poisson_p8": ({8: 10}, {8: 10}, 4, 1, 3),
     "bs1029_elasticity_p6": ({6: 8}, {6: 8}, 3, 3, 3),
     "rectangular_375_1029": ({4: 9, 6: 7}, {4: 8, 6: 7}, 3, 3, 3),
+    # rows of at most 64 bytes: K2's narrow kernel
+    "bs4_poisson2d_p1": ({1: 1001}, {1: 1001}, 5, 1, 2),
+    "bs16_poisson2d_p3": ({3: 301}, {3: 301}, 5, 1, 2),
+    # fewer block rows than SMs: wide block rows split over thread blocks
+    "bs648_elasticity_p5_6_rows": ({5: 6}, {5: 6}, 4, 3, 3),
 }
 
 
@@ -471,3 +617,113 @@ def test_matvec_on_card_matches_plain_elasticity(dev, case, dtype):
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert_close({k: v.cpu().numpy() for k, v in yp.items()},
                   {k: v.cpu().numpy() for k, v in yk.items()}, tol)
+
+
+# width -> (row sizes, col sizes, blocks per row, ncomp, dim): one bucket
+# of blocks width x width (375 x 648: rectangular); the narrow kernel up
+# to 16, the wide one above, split over thread blocks below 264 block rows
+BITWISE = {
+    "4": ({1: 1001}, {1: 1001}, 5, 1, 2),
+    "8": ({1: 500}, {1: 500}, 7, 1, 3),
+    "16": ({3: 700}, {3: 700}, 5, 1, 2),
+    "24": ({1: 301}, {1: 301}, 7, 3, 3),
+    "81": ({2: 301}, {2: 301}, 7, 3, 3),
+    "125": ({4: 97}, {4: 97}, 7, 1, 3),
+    "192": ({3: 40}, {3: 40}, 5, 3, 3),
+    "375": ({4: 23}, {4: 23}, 5, 3, 3),
+    "648": ({5: 12}, {5: 12}, 4, 3, 3),
+    "729": ({8: 10}, {8: 10}, 4, 1, 3),
+    "1029": ({6: 8}, {6: 8}, 3, 3, 3),
+    "375x648": ({4: 9}, {5: 8}, 3, 3, 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("width", list(BITWISE))
+def test_k2_f32_is_bitwise_the_emulated_order(dev, width, offset):
+    """K2's f32 output equals ``block_spmv.emulate`` bit for bit (f64 sums
+    of exact products in the kernel's lane, block and shuffle order),
+    writing y and adding into a given y (``accumulate``)."""
+    rs, cs, blocks, ncomp, dim = BITWISE[width]
+    A = random_matrix(rs, cs, blocks, ncomp, dim, seed=len(width) + offset,
+                      dtype=torch.float32, device=dev, empty_rows=(1,),
+                      offset=offset)
+    assert (A.values[next(iter(A.values))].data_ptr() % 16 != 0) == offset
+    x = rand_x(A, 9, dtype=torch.float32, device=dev)
+    ((pr, pc), vals), = A.values.items()
+    table = A.spmv_table((pr, pc), dev)
+    y = block_spmv.launch(vals, x[pc], table)
+    y0 = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        tuple(y.shape)), dtype=torch.float32, device=dev)
+    y_acc = block_spmv.launch(vals, x[pc], table, y0.clone())
+    torch.cuda.synchronize()
+    t = A.spmv_table((pr, pc), torch.device(CPU))
+    args = (vals.cpu().numpy(), x[pc].cpu().numpy(), t["row_ptr"].numpy(),
+            t["slot"].numpy(), t["col"].numpy(), offset == 0)
+    want = block_spmv.emulate(*args)
+    want_acc = block_spmv.emulate(*args, y=y0.cpu().numpy())
+    np.testing.assert_array_equal(y.cpu().numpy().view(np.int32),
+                                  want.view(np.int32))
+    np.testing.assert_array_equal(y_acc.cpu().numpy().view(np.int32),
+                                  want_acc.view(np.int32))
+
+
+@pytest.mark.cuda
+def test_k2_reports_the_mirrored_geometry(dev):
+    """The geometry the built kernel launches (``hpdg_block_spmv_layout``)
+    is ``block_spmv.layout``'s, field by field, at every case of the CPU
+    geometry test and at the main path's level sizes."""
+    sms = block_spmv.sm_count(dev)
+    cases = list(GEOMETRY.values()) + [
+        (torch.float32, 4, 4, True, 16384), (torch.float32, 16, 16, True,
+                                             16384),
+        (torch.float32, 81, 81, False, 13824), (torch.float32, 24, 24, True,
+                                                1728),
+        (torch.float64, 81, 81, False, 13824)]
+    for dtype, br, bc, aligned, n_rows in cases:
+        for nnz in (1, 7, 40):
+            want = block_spmv.layout(dtype, br, bc, aligned, n_rows, nnz, sms)
+            got = block_spmv.card_layout(dtype, br, bc, aligned, n_rows, nnz,
+                                         sms)
+            assert got == want, (dtype, br, bc, aligned, n_rows, nnz)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["narrow_4_16", "split_375_648"])
+def test_k2_narrow_and_split_under_graph_capture_equal_eager(dev, case):
+    """The narrow kernel (4 x 4 and 16 x 16 buckets, one adding into the
+    other's y) and the split wide kernel (4 block rows of 375 and 648)
+    captured in a CUDA graph: each replay equals the eager apply bit for
+    bit, also on new input through the static buffer."""
+    if case == "narrow_4_16":
+        A = random_matrix({1: 300, 3: 200}, {1: 250, 3: 310}, 5, 1, 2,
+                          seed=11, dtype=torch.float32, device=dev)
+    else:
+        A = random_matrix({4: 4, 5: 4}, {4: 4, 5: 4}, 3, 3, 3, seed=12,
+                          dtype=torch.float32, device=dev)
+    x = rand_x(A, 7, dtype=torch.float32, device=dev)
+    eager = bm.matvec(A, x)
+    static_x = {p: v.clone() for p, v in x.items()}
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        bm.matvec(A, static_x)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    c0 = block_spmv.captured
+    with torch.cuda.graph(graph):
+        out = bm.matvec(A, static_x)
+    assert block_spmv.captured - c0 == len(A.pattern.entries)
+    graph.replay()
+    torch.cuda.synchronize()
+    for p in eager:
+        assert torch.equal(out[p], eager[p])
+    x2 = rand_x(A, 8, dtype=torch.float32, device=dev)
+    for p in x2:
+        static_x[p].copy_(x2[p])
+    graph.replay()
+    want = bm.matvec(A, x2)
+    torch.cuda.synchronize()
+    for p in want:
+        assert torch.equal(out[p], want[p])
